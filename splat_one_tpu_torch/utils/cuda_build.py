@@ -1,0 +1,111 @@
+"""Build and bind the port's CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface, in ``splat_one_tpu_torch/_build/``
+(git-ignored), at first use; the library is loaded with ``ctypes``. The
+file name carries a hash of the source and flags, so an edited source is
+rebuilt. ``launch_counts`` holds one count per kernel, raised by each
+wrapper where it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    # no mul+add contraction: the kernels round each operation as the
+    # plain PyTorch versions do, so the two agree slot for slot
+    "--fmad=false",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of each kernel's launcher: (argtypes); every launcher
+# returns the cudaError_t of its launch as an int.
+SIGNATURES = {
+    # st_starts, packed, out, cs, sw, sh, tw, wrap_x, width, inv_width, stream
+    "stream_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+}
+
+launch_counts: collections.Counter = collections.Counter()
+build_log: dict = {}  # name -> {"seconds": float, "ptxas": str}
+_libs: dict = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (set CUDA_HOME or PATH)")
+    return path
+
+
+def _target(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names=None) -> dict:
+    """Compile the named kernels (default: every ``csrc/*.cu``) that are
+    not built yet: one ``nvcc`` per source, all started together. Returns
+    ``build_log``. Raises with the compiler's output if a build fails."""
+    if names is None:
+        names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    for name, (proc, tmp, target) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+        os.replace(tmp, target)
+        build_log[name] = {"seconds": time.perf_counter() - t0, "ptxas": out}
+    return build_log
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            fn = getattr(lib, name)
+            fn.argtypes = SIGNATURES[name]
+            fn.restype = ctypes.c_int
+            lib.splat_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.splat_cuda_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if rc != 0:
+        msg = lib.splat_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
