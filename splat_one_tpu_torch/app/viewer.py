@@ -21,6 +21,7 @@ import torch
 
 from splat_one_tpu_torch.core.transforms import invert_se3
 from splat_one_tpu_torch.render.rasterization import rasterization
+from splat_one_tpu_torch.utils.device import resolve as resolve_device
 
 _PAGE = """<!DOCTYPE html>
 <html><head><title>splat-one-tpu viewer</title>
@@ -144,20 +145,12 @@ class ViewerServer:
         return t
 
 
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available: pass device='cpu' to render on the CPU")
-    return dev
-
-
 def params_from_numpy(np_params: dict, alive, device="cuda"):
     """The JAX package's splat parameters as numpy arrays (``means``,
     ``scales``, ``quats``, ``opacities``, ``sh0``/``shN`` or
     ``features``/``colors``) -> the port's ``(params, alive)`` tensors on
     ``device``: f32 parameters and a bool mask."""
-    dev = _device(device)
+    dev = resolve_device(device)
     params = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
               for k, v in np_params.items()}
     return params, torch.as_tensor(np.asarray(alive, bool), device=dev)
@@ -185,7 +178,7 @@ class Renderer:
 
     def __init__(self, params, alive, width, height, sh_degree=3,
                  camera_model="pinhole", device="cuda"):
-        self.device = _device(device)
+        self.device = resolve_device(device)
         p = {k: v.to(self.device) for k, v in params.items()}
         alive = alive.to(self.device)
         self.width, self.height = width, height

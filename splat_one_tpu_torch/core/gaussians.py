@@ -8,7 +8,8 @@ convention, so checkpoints of the JAX package load unchanged:
   - ``opacities``  [CAP]      logits (``sigmoid`` at render)
   - ``sh0``        [CAP, 1, 3]  DC SH coefficients
   - ``shN``        [CAP, K-1, 3] higher-order SH coefficients
-An ``alive`` bool mask [CAP] marks the live rows.
+An ``alive`` bool mask [CAP] marks the live rows. Buffers are made on
+CUDA unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from splat_one_tpu_torch.core.sh import num_sh_bases, rgb_to_sh
+from splat_one_tpu_torch.utils.device import resolve as resolve_device
 
 Params = Dict[str, torch.Tensor]
 
@@ -32,11 +34,12 @@ def init_splats_from_points(
     init_scale: float = 1.0,
     seed: int = 0,
     feature_dim: int = 0,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> Tuple[Params, torch.Tensor]:
     """SfM-point initialization: scales from the mean 3-NN distance, random
     quats (numpy ``default_rng(seed)``), logit opacity. Returns
     ``(params, alive)`` with capacity-padded buffers on ``device``."""
+    device = resolve_device(device)
     n = points.shape[0]
     if n > capacity:
         raise ValueError(f"capacity {capacity} < number of points {n}")
@@ -83,9 +86,10 @@ def init_splats_random(
     init_scale: float = 1.0,
     seed: int = 0,
     feature_dim: int = 0,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> Tuple[Params, torch.Tensor]:
     """Random-init variant: uniform points in a cube of half-size ``extent``."""
+    resolve_device(device)  # refuse before the k-NN work
     rng = np.random.default_rng(seed)
     points = (rng.uniform(size=(n, 3)) * 2 - 1) * extent
     rgbs = rng.uniform(size=(n, 3))
@@ -101,6 +105,24 @@ def activated(params: Params, alive: Optional[torch.Tensor] = None):
     opac = torch.sigmoid(params["opacities"])
     sh = torch.cat([params["sh0"], params["shN"]], dim=1)
     return params["means"], params["quats"], scales, opac, sh
+
+
+def n_alive(alive: torch.Tensor) -> torch.Tensor:
+    return torch.sum(alive.to(torch.int32))
+
+
+def grow_capacity(params: Params, alive: torch.Tensor, new_capacity: int):
+    """Pad every buffer (and ``alive``) with zero rows up to
+    ``new_capacity``; a smaller or equal capacity returns them unchanged."""
+    cap = alive.shape[0]
+    if new_capacity <= cap:
+        return params, alive
+    pad = new_capacity - cap
+
+    def padf(x):
+        return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))], dim=0)
+
+    return {k: padf(v) for k, v in params.items()}, padf(alive)
 
 
 def _logit(p: float) -> float:

@@ -2,8 +2,9 @@
 
 Counterpart of ``splat_one_tpu/data/synthetic.py``: ``look_at``,
 ``ring_cameras`` and ``make_gt_gaussians`` are numpy-only and identical.
-``make_synthetic_scene`` (which renders ground-truth images and builds a
-trainer's SceneData) comes with the training slice.
+``make_synthetic_scene`` (which renders ground-truth images through the
+gen-1 ``impl="tiled"`` rasterizer and builds a Trainer's SceneData) comes
+with that rasterizer's slice.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Supertile-stream intersection builder, forward half.
+"""Supertile-stream intersection builder and the backward's row reduction.
 
 Counterpart of ``splat_one_tpu/ops/stream_isect.py``. Gaussians are binned
-into 32x32 px supertiles (2x2 tiles of 16 px); the compositing kernel
-streams each supertile's depth-sorted slot range once and gates every
+into 32x32 px supertiles (2x2 tiles of 16 px); the compositing kernels
+stream each supertile's depth-sorted slot range once and gate every
 slot per 16 px tile. Pipeline:
   1. per-(camera, gaussian) supertile bbox spans -> counts -> offsets,
   2. expansion to slots (ops.seg_broadcast) and the slots' supertile ids,
@@ -11,7 +11,9 @@ slot per 16 px tile. Pipeline:
 Spherical cameras wrap in azimuth: unwrapped spans, ``mod sw`` at
 expansion. Slots are indexed with integers, so the JAX package's f32-id
 limit (C*N < 2^24) does not apply to the forward; the f32 ``COL_GID``
-column keeps that limit for the backward.
+column keeps that limit for the backward, whose per-slot gradient rows
+(``GCOL_*``) ``reduce_stream_grads`` sorts by that key and reduces per
+gaussian (``ops.seg_reduce``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from splat_one_tpu_torch.ops import seg_reduce
 from splat_one_tpu_torch.ops.projection import Projected, conic_ellipse_radii
 from splat_one_tpu_torch.ops.seg_broadcast import expand_meta_streamed
 
@@ -45,6 +48,22 @@ COL_GID = 11  # flat [C*N) gaussian id as f32 (the backward's reduce key)
 COL_EXT_RX = 12
 COL_EXT_RY = 13
 NF = 16  # padded power-of-two width
+
+# Column layout of the backward's [pad_cap, NF] per-slot gradient rows.
+GCOL_DX = 0
+GCOL_DY = 1
+GCOL_DCA = 2
+GCOL_DCB = 3
+GCOL_DCC = 4
+GCOL_DOPAC = 5
+GCOL_DR = 6
+GCOL_DG = 7
+GCOL_DB = 8
+GCOL_DDEPTH = 9
+GCOL_ABSDX = 10  # |d means2d| sums (absgrad), reduced only when asked for
+GCOL_ABSDY = 11
+GCOL_KEY = 12  # gid + 1 (f32) on the supertile's own slots, 0 elsewhere
+N_GCOLS = 12  # payload columns
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,3 +282,31 @@ def build_stream_intersections(
         n_slots=n_slots,
         overflow=overflow,
     )
+
+
+def sort_grad_rows(pgrads: torch.Tensor, num_flat: int):
+    """Bring each gaussian's gradient rows together: one stable sort of
+    ``pgrads`` [pad_cap, NF] by its key column (``GCOL_KEY``, gid + 1;
+    unwritten rows hold 0 and sort to the front) -> ``(rows, bounds)``,
+    the sorted rows and the start of each gaussian's run, [num_flat + 1]
+    int32. Within a run the rows keep their stream order."""
+    if num_flat + 1 >= 1 << 24:
+        raise ValueError(f"{num_flat} (camera, gaussian) pairs: the f32 gid key "
+                         "is exact only below 2^24")
+    keys = pgrads[:, GCOL_KEY].to(torch.int32)
+    sorted_keys, order = torch.sort(keys, stable=True)
+    queries = torch.arange(1, num_flat + 2, dtype=torch.int32, device=keys.device)
+    bounds = torch.searchsorted(sorted_keys, queries, out_int32=True)
+    return pgrads[order], bounds
+
+
+def reduce_stream_grads(pgrads: torch.Tensor, num_flat: int,
+                        n_payload: int = N_GCOLS) -> torch.Tensor:
+    """Per-slot -> per-gaussian gradient reduction: ``sort_grad_rows``,
+    then the segmented reduce (``ops.seg_reduce``) of the leading
+    ``n_payload`` columns (10 skips ABSDX/ABSDY when absgrad is off).
+    Output ``[n_payload, num_flat]`` in flat [C*N] order, GCOL row order.
+    The JAX package's bf16x2 packing of the rows (a TPU sort-payload
+    trick) is not part of the port."""
+    rows, bounds = sort_grad_rows(pgrads, num_flat)
+    return seg_reduce.segment_reduce_rows(rows, bounds, n_payload)

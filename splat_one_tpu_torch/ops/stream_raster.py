@@ -1,6 +1,6 @@
-"""Supertile-stream compositing, forward half.
+"""Supertile-stream compositing: forward, backward and their autograd.Function.
 
-Counterpart of ``splat_one_tpu/ops/stream_raster.py`` (forward). One
+Counterpart of ``splat_one_tpu/ops/stream_raster.py``. One
 program per (camera, 32x32 px supertile) streams the supertile's
 depth-sorted slots in chunks of G = 128 from the G-aligned base
 ``floor(start / G) * G``, gates each slot per 16 px tile by its
@@ -10,9 +10,17 @@ all its 256 pixels have T < ``TERM_THRESH``; the number of chunks it
 processed is recorded for the backward. Output is [CS, 4, 8, 256]: rgb,
 alpha = 1 - T, accumulated depth, n_chunks and two zero channels.
 
-``stream_fwd`` launches the hand-written CUDA kernel
-(``csrc/stream_fwd.cu``) on CUDA tensors and runs ``stream_fwd_plain``,
-its plain PyTorch version, on CPU tensors.
+The backward replays the same chunks in forward order, each tile up to
+its n_chunks, with per-pixel prefix accumulators, and writes one gradient
+row per slot (``GCOL_*`` columns of ``ops.stream_isect``) at G-aligned
+per-supertile offsets; ``stream_isect.reduce_stream_grads`` reduces them
+per gaussian. ``composite_stream`` wraps forward and backward in a
+``torch.autograd.Function``.
+
+``stream_fwd`` and ``stream_bwd`` launch the hand-written CUDA kernels
+(``csrc/stream_fwd.cu``, ``csrc/stream_bwd.cu``) on CUDA tensors and run
+``stream_fwd_plain`` / ``stream_bwd_plain``, their plain PyTorch
+versions, on CPU tensors.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ class StreamCfg:
     exp_cap: int
     n_supertiles: int  # per camera (sw * sh)
     wrap_x: bool = False
+    absgrad: bool = False  # reduce the ABSDX/ABSDY gradient columns
     ss: int = SS  # tiles per supertile side
 
     @property
@@ -82,16 +91,28 @@ class StreamCfg:
     def packed_rows(self):
         return self.exp_cap + self.chunk
 
+    @property
+    def pad_cap(self):
+        """Rows of the backward's gradient buffer (``StreamCaps.pad_cap``)."""
+        raw = self.exp_cap + 2 * self.cs * self.chunk
+        return -(-raw // 1024) * 1024
+
     @staticmethod
     def from_caps(caps: StreamCaps, width, height, tile_size, num_cameras,
-                  num_gaussians, wrap_x=False):
+                  num_gaussians, wrap_x=False, absgrad=False):
         return StreamCfg(
             width=width, height=height, tile_size=tile_size,
             num_cameras=num_cameras, num_gaussians=num_gaussians,
             chunk=caps.chunk, exp_cap=caps.exp_cap,
             n_supertiles=caps.n_supertiles // num_cameras,
-            wrap_x=wrap_x, ss=caps.ss,
+            wrap_x=wrap_x, absgrad=absgrad, ss=caps.ss,
         )
+
+    @property
+    def caps(self) -> StreamCaps:
+        return StreamCaps(exp_cap=self.exp_cap,
+                          n_supertiles=self.num_cameras * self.n_supertiles,
+                          chunk=self.chunk, ss=self.ss)
 
 
 def _inv_width(cfg: StreamCfg) -> float:
@@ -201,6 +222,29 @@ def stream_fwd_plain(cfg: StreamCfg, st_starts: torch.Tensor,
     return out
 
 
+def _check_kernel_inputs(name, cfg: StreamCfg, st_starts, packed, *starts_al):
+    """Raise unless the tensors are what the CUDA kernels take; returns
+    them contiguous."""
+    if packed.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {packed.device}")
+    if (cfg.chunk, cfg.tile_size, cfg.ss) != (128, 16, 2):
+        raise ValueError(
+            f"{name} kernel is built for chunk=128, tile_size=16, ss=2; "
+            f"got {(cfg.chunk, cfg.tile_size, cfg.ss)}")
+    if packed.dtype != torch.float32 or packed.dim() != 2 or packed.shape[1] != NF:
+        raise ValueError(f"packed must be f32 [rows, {NF}], got "
+                         f"{packed.dtype} {tuple(packed.shape)}")
+    if packed.shape[0] < cfg.packed_rows:
+        raise ValueError(f"packed has {packed.shape[0]} rows < {cfg.packed_rows}")
+    for t in (st_starts, *starts_al):
+        if t.dtype != torch.int32 or t.shape != (cfg.cs + 1,):
+            raise ValueError(f"slot starts must be int32 [{cfg.cs + 1}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != packed.device:
+            raise ValueError("slot starts and packed must be on one device")
+    return [t.contiguous() for t in (st_starts, packed, *starts_al)]
+
+
 def stream_fwd(cfg: StreamCfg, st_starts: torch.Tensor,
                packed: torch.Tensor) -> torch.Tensor:
     """Forward compositing -> [CS, NT, OUT_CH, P] f32.
@@ -211,24 +255,7 @@ def stream_fwd(cfg: StreamCfg, st_starts: torch.Tensor,
     use) or raise."""
     if packed.device.type == "cpu":
         return stream_fwd_plain(cfg, st_starts, packed)
-    if packed.device.type != "cuda":
-        raise ValueError(f"stream_fwd: unsupported device {packed.device}")
-    if (cfg.chunk, cfg.tile_size, cfg.ss) != (128, 16, 2):
-        raise ValueError(
-            "stream_fwd kernel is built for chunk=128, tile_size=16, ss=2; "
-            f"got {(cfg.chunk, cfg.tile_size, cfg.ss)}")
-    if packed.dtype != torch.float32 or packed.dim() != 2 or packed.shape[1] != NF:
-        raise ValueError(f"packed must be f32 [rows, {NF}], got "
-                         f"{packed.dtype} {tuple(packed.shape)}")
-    if packed.shape[0] < cfg.packed_rows:
-        raise ValueError(f"packed has {packed.shape[0]} rows < {cfg.packed_rows}")
-    if st_starts.dtype != torch.int32 or st_starts.shape != (cfg.cs + 1,):
-        raise ValueError(f"st_starts must be int32 [{cfg.cs + 1}], got "
-                         f"{st_starts.dtype} {tuple(st_starts.shape)}")
-    if st_starts.device != packed.device:
-        raise ValueError("st_starts and packed must be on one device")
-    packed = packed.contiguous()
-    st_starts = st_starts.contiguous()
+    st_starts, packed = _check_kernel_inputs("stream_fwd", cfg, st_starts, packed)
     out = torch.empty((cfg.cs, cfg.nt, OUT_CH, cfg.npix), dtype=torch.float32,
                       device=packed.device)
     lib = cuda_build.library("stream_fwd")
@@ -243,6 +270,194 @@ def stream_fwd(cfg: StreamCfg, st_starts: torch.Tensor,
     return out
 
 
+_CH4 = [0, 1, 2, 4]  # rgb and depth channels of fwd_out / gout
+_WARP = 32
+
+
+def stream_bwd_plain(cfg: StreamCfg, st_starts: torch.Tensor,
+                     st_starts_al: torch.Tensor, packed: torch.Tensor,
+                     fwd_out: torch.Tensor, gout: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the backward compositing kernel.
+
+    Same chunk replay (each tile up to its forward n_chunks), gating, kill
+    and clamp rules as ``csrc/stream_bwd.cu``, and the same arithmetic in
+    the same order: a serial loop over the G slots of a chunk, vectorised
+    over supertiles, tiles and pixels; each slot's sum over the 1,024
+    pixels of its supertile taken as the kernel takes it (a butterfly over
+    the 32 lanes of each warp, then the 32 warps added in order)."""
+    G, NT, P, CS = cfg.chunk, cfg.nt, cfg.npix, cfg.cs
+    dev = packed.device
+    nr = si.N_GCOLS if cfg.absgrad else si.GCOL_ABSDX
+    pgrad = torch.zeros((cfg.pad_cap, NF), dtype=torch.float32, device=dev)
+    if CS == 0:
+        return pgrad
+    starts = st_starts.long()
+    s0, s1 = starts[:-1], starts[1:]
+    base0 = torch.div(s0, G, rounding_mode="floor") * G
+    a0 = st_starts_al[:-1].long()
+    nch = fwd_out[:, :, CH_NCHUNKS, 0].long()  # [CS, NT]
+    nchunks = torch.minimum(-torch.div(-(s1 - base0), G, rounding_mode="floor"),
+                            nch.amax(-1))
+    g4 = gout[:, :, _CH4]  # [CS, NT, 4, P]
+    o4 = fwd_out[:, :, _CH4]
+    godot = g4[:, :, 0] * o4[:, :, 0]
+    for c in range(1, 4):
+        godot = godot + g4[:, :, c] * o4[:, :, c]
+    gat = gout[:, :, 3] * (1.0 - fwd_out[:, :, 3])  # gA * T_final
+    T = torch.ones((CS, NT, P), dtype=torch.float32, device=dev)
+    gP = torch.zeros((CS, NT, P), dtype=torch.float32, device=dev)
+    px_all, py_all, tx_all, ty_all = _tile_geometry(cfg, torch.arange(CS, device=dev))
+    inv_w = _inv_width(cfg)
+    slots = torch.arange(G, device=dev)
+    for k in range(int(nchunks.max())):
+        active = torch.nonzero(k < nchunks)[:, 0]
+        for sel in torch.split(active, _PLAIN_BATCH):
+            S = sel.shape[0]
+            rows = base0[sel, None] + k * G + slots
+            chunk = packed[rows]  # [S, G, NF]
+            rowmask = (rows >= s0[sel, None]) & (rows < s1[sel, None])
+            gate = (_chunk_gate(cfg, chunk, tx_all[sel], ty_all[sel], rowmask)
+                    & (k < nch[sel])[..., None])
+            Ts, g4s = T[sel], g4[sel]
+            dconst = godot[sel] - gP[sel]
+            gats = gat[sel]
+            px, py = px_all[sel], py_all[sel]
+            tin = torch.ones_like(Ts)
+            pre = torch.zeros_like(Ts)
+            part = chunk.new_zeros((S, G, _WARP, nr))  # per-warp slot sums
+            for g in range(G):
+                c = chunk[:, g, :, None, None]  # [S, NF, 1, 1]
+                dx = c[:, si.COL_X] - px
+                if cfg.wrap_x:
+                    dx = dx - cfg.width * torch.round(dx * inv_w)
+                dy = c[:, si.COL_Y] - py
+                ca, cb, cc = c[:, si.COL_CA], c[:, si.COL_CB], c[:, si.COL_CC]
+                sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+                expneg = torch.exp(-sigma)
+                alpha_raw = c[:, si.COL_OPAC] * expneg
+                killed = ((sigma < 0.0) | (alpha_raw < ALPHA_MIN)
+                          | ~gate[:, :, g, None])
+                alpha = torch.where(killed, torch.zeros_like(alpha_raw),
+                                    torch.clamp(alpha_raw, max=ALPHA_MAX))
+                one_m = 1.0 - alpha
+                T_i = tin * Ts
+                w = alpha * T_i
+                cg = c[:, si.COL_R] * g4s[:, :, 0]
+                cg = cg + c[:, si.COL_G] * g4s[:, :, 1]
+                cg = cg + c[:, si.COL_B] * g4s[:, :, 2]
+                cg = cg + c[:, si.COL_DEPTH] * g4s[:, :, 3]
+                pre = pre + w * cg
+                dalpha = T_i * cg - (dconst - pre) / one_m + gats / one_m
+                live = ~(killed | (alpha_raw > ALPHA_MAX))
+                zero = torch.zeros_like(dalpha)
+                dsigma = torch.where(live, -dalpha * alpha, zero)
+                dopac = torch.where(live, dalpha * expneg, zero)
+                ddx = dsigma * (ca * dx + cb * dy)
+                ddy = dsigma * (cc * dy + cb * dx)
+                vals = [ddx, ddy, dsigma * 0.5 * dx * dx, dsigma * dx * dy,
+                        dsigma * 0.5 * dy * dy, dopac] + [
+                            w * g4s[:, :, i] for i in range(4)]
+                if cfg.absgrad:
+                    vals += [torch.abs(ddx), torch.abs(ddy)]
+                # thread j * P + p is lane (j * P + p) % 32 of warp // 32
+                v = torch.stack(vals, dim=-1).reshape(S, NT * P // _WARP, _WARP, nr)
+                half = _WARP // 2
+                while half:
+                    v = v[:, :, :half] + v[:, :, half:2 * half]
+                    half //= 2
+                part[:, g] = v[:, :, 0]
+                tin = tin * one_m
+            acc = part[:, :, 0]
+            for wi in range(1, NT * P // _WARP):
+                acc = acc + part[:, :, wi]
+            out_rows = a0[sel, None] + k * G + slots  # [S, G]
+            pgrad[out_rows, :nr] = acc
+            pgrad[out_rows, si.GCOL_KEY] = torch.where(
+                rowmask, chunk[:, :, si.COL_GID] + 1.0,
+                torch.zeros_like(chunk[:, :, si.COL_GID]))
+            T[sel] = Ts * tin
+            gP[sel] = gP[sel] + pre
+    return pgrad
+
+
+def stream_bwd(cfg: StreamCfg, st_starts: torch.Tensor,
+               st_starts_al: torch.Tensor, packed: torch.Tensor,
+               fwd_out: torch.Tensor, gout: torch.Tensor) -> torch.Tensor:
+    """Backward compositing -> per-slot gradient rows [pad_cap, NF] f32
+    (``GCOL_*`` columns; the key column holds gid + 1 on each supertile's
+    own slots and rows never reached stay 0).
+
+    ``fwd_out`` is the forward's output (its n_chunks channel sets how
+    far each tile replays), ``gout`` the cotangent of it. CPU tensors take
+    the plain version; CUDA tensors launch the kernel (built from
+    ``csrc/stream_bwd.cu`` at first use) or raise."""
+    if packed.device.type == "cpu":
+        return stream_bwd_plain(cfg, st_starts, st_starts_al, packed, fwd_out, gout)
+    st_starts, packed, st_starts_al = _check_kernel_inputs(
+        "stream_bwd", cfg, st_starts, packed, st_starts_al)
+    shape = (cfg.cs, cfg.nt, OUT_CH, cfg.npix)
+    for name, t in (("fwd_out", fwd_out), ("gout", gout)):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape or t.device != packed.device:
+            raise ValueError(f"{name} must be f32 {shape} on {packed.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    fwd_out = fwd_out.contiguous()
+    gout = gout.contiguous()
+    # rows of chunks no tile reaches must read 0 (the reduce skips key 0)
+    pgrad = torch.zeros((cfg.pad_cap, NF), dtype=torch.float32, device=packed.device)
+    lib = cuda_build.library("stream_bwd")
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.stream_bwd(
+            st_starts.data_ptr(), st_starts_al.data_ptr(), packed.data_ptr(),
+            fwd_out.data_ptr(), gout.data_ptr(), pgrad.data_ptr(),
+            cfg.cs, cfg.sw, cfg.sh, cfg.tw, int(cfg.wrap_x),
+            float(cfg.width), _inv_width(cfg), int(cfg.absgrad), stream)
+    cuda_build.check(lib, rc, "stream_bwd")
+    cuda_build.launch_counts["stream_bwd"] += 1
+    return pgrad
+
+
+class _StreamComposite(torch.autograd.Function):
+    """Forward: field table + ``stream_fwd``. Backward: ``stream_bwd`` +
+    ``reduce_stream_grads``. The field table is built inside ``forward``
+    (no autograd graph), so the radii and the membership extents
+    (``COL_EXT_RX/RY``) get no gradient, as in the JAX custom VJP."""
+
+    @staticmethod
+    def forward(ctx, cfg, isect, means2d, conics, colors, opacities, depths,
+                radii, abs_dummy):
+        if cfg.absgrad != (abs_dummy is not None):
+            raise ValueError("cfg.absgrad must be set exactly when abs_dummy is passed")
+        fields = si.build_field_columns(means2d, conics, opacities, colors,
+                                        depths, radii)
+        packed = si.pack_stream(fields, isect, cfg.caps)
+        out = stream_fwd(cfg, isect.st_starts, packed)
+        ctx.cfg = cfg
+        ctx.save_for_backward(packed, isect.st_starts, isect.st_starts_al, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        packed, st_starts, st_starts_al, out = ctx.saved_tensors
+        cfg = ctx.cfg
+        C, N = cfg.num_cameras, cfg.num_gaussians
+        pgrads = stream_bwd(cfg, st_starts, st_starts_al, packed, out, gout)
+        n_payload = si.N_GCOLS if cfg.absgrad else si.GCOL_ABSDX
+        seg = si.reduce_stream_grads(pgrads, C * N, n_payload)
+
+        def cols(*c):
+            return seg[list(c)].T.reshape(C, N, len(c))
+
+        dabs = cols(si.GCOL_ABSDX, si.GCOL_ABSDY) if cfg.absgrad else None
+        return (None, None,
+                cols(si.GCOL_DX, si.GCOL_DY),
+                cols(si.GCOL_DCA, si.GCOL_DCB, si.GCOL_DCC),
+                cols(si.GCOL_DR, si.GCOL_DG, si.GCOL_DB),
+                seg[si.GCOL_DOPAC].reshape(C, N),
+                seg[si.GCOL_DDEPTH].reshape(C, N),
+                None, dabs)
+
+
 def composite_stream(
     cfg: StreamCfg,
     means2d: torch.Tensor,  # [C, N, 2]
@@ -250,17 +465,17 @@ def composite_stream(
     colors: torch.Tensor,  # [C, N, 3]
     opacities: torch.Tensor,  # [C, N]
     depths: torch.Tensor,  # [C, N]
-    radii: torch.Tensor,  # [C, N]
+    radii: torch.Tensor,  # [C, N] (tile-bbox metadata, no gradient)
     isect: StreamIsect,
+    abs_dummy: torch.Tensor | None = None,  # [C, N, 2] absgrad hook
 ) -> torch.Tensor:
-    """Supertile compositing (forward) -> [CS, NT, OUT_CH, P]."""
-    caps = StreamCaps(exp_cap=cfg.exp_cap,
-                      n_supertiles=cfg.num_cameras * cfg.n_supertiles,
-                      chunk=cfg.chunk, ss=cfg.ss)
-    fields = si.build_field_columns(means2d, conics, opacities, colors,
-                                    depths, radii)
-    packed = si.pack_stream(fields, isect, caps)
-    return stream_fwd(cfg, isect.st_starts, packed)
+    """Differentiable supertile compositing -> [CS, NT, OUT_CH, P].
+
+    Gradients flow to means2d, conics, colors, opacities and depths; the
+    cotangent of ``abs_dummy`` is the per-gaussian sum of |d means2d| over
+    pixels; pass it exactly when ``cfg.absgrad``."""
+    return _StreamComposite.apply(cfg, isect, means2d, conics, colors,
+                                  opacities, depths, radii.detach(), abs_dummy)
 
 
 def stream_to_image(cfg: StreamCfg, out: torch.Tensor):

@@ -1,11 +1,13 @@
-"""Public rasterization API (forward): the port's ``rasterization()``.
+"""Public rasterization API: the port's ``rasterization()``.
 
 Counterpart of ``splat_one_tpu/render/rasterization.py`` with the stream
-backend: EWA projection (ops.projection) -> supertile-stream intersection
-build (ops.stream_isect) -> forward compositing kernel
-(ops.stream_raster) -> image assembly. Renders only: gradients come with
-the backward kernels of a later slice, so a call whose inputs require
-grad raises rather than return wrong gradients.
+backend: differentiable EWA projection (ops.projection, autograd) ->
+supertile-stream intersection build on the detached projection
+(ops.stream_isect) -> the compositing ``autograd.Function``
+(ops.stream_raster: forward and backward kernels, per-gaussian
+reduction) -> image assembly. Gradients reach means, quats, scales,
+opacities and colours, and the ``means2d_dummy`` / ``absgrad_dummy``
+hooks that densification reads.
 """
 
 from __future__ import annotations
@@ -16,12 +18,9 @@ import torch
 
 from splat_one_tpu_torch.ops import stream_isect as si_mod
 from splat_one_tpu_torch.ops import stream_raster
-from splat_one_tpu_torch.ops.projection import project_gaussians
+from splat_one_tpu_torch.ops.projection import Projected, project_gaussians
 from splat_one_tpu_torch.ops.stream_isect import StreamCaps
 from splat_one_tpu_torch.ops.stream_raster import StreamCfg
-
-_LATER = ("is not ported yet: it comes with the training slice "
-          "(backward kernels and autograd.Function)")
 
 
 def rasterization(
@@ -46,17 +45,23 @@ def rasterization(
     backgrounds: Optional[torch.Tensor] = None,  # [C, 3]
     caps: Optional[StreamCaps] = None,
     alive: Optional[torch.Tensor] = None,  # [N] bool
-    means2d_dummy=None,
-    absgrad_dummy=None,
+    means2d_dummy: Optional[torch.Tensor] = None,  # [C, N, 2] grad hook
+    absgrad_dummy: Optional[torch.Tensor] = None,  # [C, N, 2] absgrad hook
     impl: Optional[str] = None,
     proj_transform=None,
     st_shard=None,
 ):
-    """Render gaussians into C cameras (forward only).
+    """Render gaussians into C cameras. Differentiable.
 
     Returns ``(render_colors [C,H,W,3|4|1], render_alphas [C,H,W,1],
-    info)``; ``info`` holds ``radii``, ``depths``, ``valid``, ``n_isect``,
-    ``overflow``, ``width``, ``height`` and ``n_cameras``."""
+    info)``; ``info`` holds ``radii``, ``radii_local`` (the same: there is
+    no ``proj_transform`` yet), ``depths``, ``valid``, ``n_isect``,
+    ``overflow``, ``width``, ``height`` and ``n_cameras``.
+
+    ``means2d_dummy`` (zeros) is added to the projected means, so its
+    gradient is d(loss)/d(means2d): the counterpart of gsplat's retained
+    ``means2d.grad``. ``absgrad_dummy``'s gradient is the per-gaussian sum
+    of |d(loss)/d(means2d)| over pixels."""
     if render_mode not in ("RGB", "RGB+ED", "RGB+D", "ED", "D"):
         raise ValueError(f"bad render_mode {render_mode!r}")
     if rasterize_mode not in ("classic", "antialiased"):
@@ -70,15 +75,10 @@ def rasterization(
         raise NotImplementedError("st_shard (multi-GPU supertile slabs) is "
                                   "not ported yet: it comes with the "
                                   "multi-GPU slice")
-    for name, val in (("proj_transform", proj_transform),
-                      ("means2d_dummy", means2d_dummy),
-                      ("absgrad_dummy", absgrad_dummy)):
-        if val is not None:
-            raise NotImplementedError(f"{name} {_LATER}")
-    inputs = (means, quats, scales, opacities, colors, viewmats, Ks, backgrounds)
-    if torch.is_grad_enabled() and any(
-            x is not None and x.requires_grad for x in inputs):
-        raise NotImplementedError(f"rendering with gradients {_LATER}")
+    if proj_transform is not None:
+        raise NotImplementedError("proj_transform (multi-GPU gather of "
+                                  "projections) is not ported yet: it comes "
+                                  "with the multi-GPU slice")
 
     N = means.shape[0]
     C = viewmats.shape[0]
@@ -91,16 +91,21 @@ def rasterization(
         radius_clip=radius_clip,
         antialiased=(rasterize_mode == "antialiased"), alive=alive,
     )
+    if means2d_dummy is not None:
+        proj = proj._replace(means2d=proj.means2d + means2d_dummy)
+    # the layout is integer bookkeeping: built from a detached projection
+    proj_sg = Projected(*(x.detach() for x in proj))
     if caps is None:
         _, _, sgw, sgh = si_mod.supertile_grid(width, height, tile_size)
         caps = StreamCaps.choose(N, C, C * sgw * sgh)
     cfg = StreamCfg.from_caps(caps, width, height, tile_size, C, N,
-                              wrap_x=(camera_model == "spherical"))
+                              wrap_x=(camera_model == "spherical"),
+                              absgrad=(absgrad_dummy is not None))
     isect = si_mod.build_stream_intersections(
-        proj, width, height, tile_size, caps, camera_model=camera_model)
+        proj_sg, width, height, tile_size, caps, camera_model=camera_model)
     out = stream_raster.composite_stream(
         cfg, proj.means2d, proj.conics, proj.colors, proj.opacities,
-        proj.depths, proj.radii, isect)
+        proj.depths, proj_sg.radii, isect, abs_dummy=absgrad_dummy)
     rgb, alpha, depth = stream_raster.stream_to_image(cfg, out)
 
     if backgrounds is not None:
@@ -116,7 +121,8 @@ def rasterization(
         render = depth
 
     info = {
-        "radii": proj.radii,
+        "radii": proj_sg.radii,
+        "radii_local": proj_sg.radii,
         "depths": proj.depths,
         "valid": proj.valid,
         "n_isect": isect.n_isect,

@@ -39,6 +39,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     # st_starts, packed, out, cs, sw, sh, tw, wrap_x, width, inv_width, stream
     "stream_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    # st_starts, st_starts_al, packed, fwd_out, gout, pgrad, cs, sw, sh, tw,
+    # wrap_x, width, inv_width, absgrad, stream
+    "stream_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    # rows, bounds, out, m0, n_payload, stream
+    "seg_reduce": [_P, _P, _P, _I, _I, _P],
 }
 
 launch_counts: collections.Counter = collections.Counter()

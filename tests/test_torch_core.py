@@ -114,10 +114,11 @@ def test_gaussian_init_and_activation(init):
     if init == "points":
         pts = _f32(rng, 64, 3)
         rgbs = rng.uniform(size=(64, 3))
-        pt, at = tg.init_splats_from_points(pts, rgbs, 80, sh_degree=2, seed=4)
+        pt, at = tg.init_splats_from_points(pts, rgbs, 80, sh_degree=2, seed=4,
+                                            device="cpu")
         pj, aj = jg.init_splats_from_points(pts, rgbs, 80, sh_degree=2, seed=4)
     else:
-        pt, at = tg.init_splats_random(80, 50, 2.0, sh_degree=3, seed=5)
+        pt, at = tg.init_splats_random(80, 50, 2.0, sh_degree=3, seed=5, device="cpu")
         pj, aj = jg.init_splats_random(80, 50, 2.0, sh_degree=3, seed=5)
     assert sorted(pt) == sorted(pj)
     for k in pj:

@@ -125,16 +125,15 @@ def test_rasterization_refuses_what_is_not_ported():
     t = [torch.as_tensor(x) for x in args[:7]]
     w, h = args[7:]
     for bad in (dict(impl="tiled"), dict(st_shard=("gauss", 2)),
-                dict(proj_transform=lambda p: p),
-                dict(means2d_dummy=torch.zeros(2, 600, 2)),
-                dict(absgrad_dummy=torch.zeros(2, 600, 2))):
+                dict(proj_transform=lambda p: p)):
         with pytest.raises(NotImplementedError):
             tras(*t, w, h, **bad)
+    # inputs that require grad render (gradients: test_torch_grads.py)
     means = t[0].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="gradients"):
-        tras(means, *t[1:], w, h)
+    render, _, _ = tras(means, *t[1:], w, h)
+    assert render.requires_grad
     with torch.no_grad():
-        render, _, _ = tras(means, *t[1:], w, h)
-    assert render.shape == (2, h, w, 3)
+        plain, _, _ = tras(means, *t[1:], w, h)
+    assert plain.shape == (2, h, w, 3) and torch.equal(plain, render.detach())
     with pytest.raises(ValueError):
         tras(*t, w, h, render_mode="RGB+X")

@@ -72,7 +72,7 @@ def _inputs(kw, model):
     wrap = model == "spherical"
     cfg_j = jsr.StreamCfg.from_caps(caps_j, w, h, 16, C, N, wrap_x=wrap)
     cfg_t = tsr.StreamCfg.from_caps(caps_t, w, h, 16, C, N, wrap_x=wrap)
-    return cfg_j, cfg_t, ij.st_starts, packed, jsr
+    return cfg_j, cfg_t, ij, packed, jsr
 
 
 def _port_inputs(kw, model, device):
@@ -86,12 +86,13 @@ def _port_inputs(kw, model, device):
     caps = tsi.StreamCaps.choose(N, C, C * sw * sh)
     isect = tsi.build_stream_intersections(proj, w, h, 16, caps, camera_model=model)
     cfg = tsr.StreamCfg.from_caps(caps, w, h, 16, C, N, wrap_x=(model == "spherical"))
-    return cfg, isect.st_starts, tsi.pack_stream(tsi.build_fields(proj), isect, caps)
+    return cfg, isect, tsi.pack_stream(tsi.build_fields(proj), isect, caps)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_forward_matches_jax_kernel(case):
-    cfg_j, cfg_t, st, packed, jsr = _inputs(*CASES[case])
+    cfg_j, cfg_t, ij, packed, jsr = _inputs(*CASES[case])
+    st = ij.st_starts
     out_j = np.asarray(jsr._fwd_call(cfg_j, st, packed.T))
     before = dict(cuda_build.launch_counts)
     out_t = tsr.stream_fwd(cfg_t, torch.as_tensor(np.array(st)),
@@ -150,7 +151,8 @@ def test_cuda_kernel_matches_plain(case):
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, st, packed = _port_inputs(*CASES[case], "cuda")
+    cfg, isect, packed = _port_inputs(*CASES[case], "cuda")
+    st = isect.st_starts
     n0 = cuda_build.launch_counts["stream_fwd"]
     out_k = tsr.stream_fwd(cfg, st, packed)
     assert cuda_build.launch_counts["stream_fwd"] == n0 + 1

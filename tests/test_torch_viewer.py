@@ -96,7 +96,12 @@ def test_checkpoint_render_matches_jax(tmp_path, model):
 def test_port_never_imports_jax():
     pkg = REPO / "splat_one_tpu_torch"
     mods = [m.name for m in pkgutil.walk_packages([str(pkg)], "splat_one_tpu_torch.")]
-    assert "splat_one_tpu_torch.ops.stream_raster" in mods
+    assert {"splat_one_tpu_torch.ops.stream_raster", "splat_one_tpu_torch.ops.seg_reduce",
+            "splat_one_tpu_torch.ops.ssim", "splat_one_tpu_torch.train.trainer",
+            "splat_one_tpu_torch.train.strategy", "splat_one_tpu_torch.train.optimizers",
+            "splat_one_tpu_torch.train.losses", "splat_one_tpu_torch.train.config",
+            "splat_one_tpu_torch.utils.tensorboard",
+            "splat_one_tpu_torch.utils.device"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
