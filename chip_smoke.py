@@ -11,27 +11,44 @@ Phases (any failure exits non-zero and prints no result line):
      register and shared-memory use;
   3. kernels vs plain versions on the card: small pinhole, spherical,
      edge-partial and empty scenes and a 100k-gaussian 640x480 scene,
-     for the forward, backward and segmented-reduce kernels; the kernel
-     path's renders and end-to-end gradients against the dense oracle on
-     a small scene;
+     for the stream forward, backward and segmented-reduce kernels and
+     (3b) the tiled forward and backward kernels on the same scenes'
+     per-tile layouts and the seg_broadcast kernel on their stream builds
+     and a ragged random problem; the stream and tiled paths' renders and
+     end-to-end gradients against the dense oracle and against each
+     other on small scenes;
   4. serving at full width: the 1M-gaussian, SH degree 3, 1280x720
      scene of bench.py (seed 0) through params_from_numpy ->
      make_render_fn, three pinhole and one spherical request; launch
      counts, output checks, per-request and per-layer times, peak memory;
      the forward kernel against its plain version at these inputs;
+     (4b) the same scene through rasterization(impl="tiled"), pinhole
+     front and spherical, against the stream render: layer split, the
+     tiled forward kernel vs its plain version, time, bound, memory;
   5. training at full width: (a) bench.py's fwd+bwd step on the same
      scene (loss sum(render) + sum(alpha), gradients into all five
      inputs): step time, Mpix/s, per-layer times, device trace, peak
-     memory, launch counts, both new kernels against their plain versions
-     at these inputs; (b) the port's Trainer, 1M random-init gaussians at
-     1280x720, SH degree 3, GT rendered by the port from 200k gaussians
-     seen by 8 ring cameras, with a densification refine in its 6 steps,
-     and its checkpoint served back through the viewer's loader;
+     memory, launch counts, both backward kernels against their plain
+     versions at these inputs; (a-i) the same step through
+     impl="tiled", its gradients against the stream step's and the tiled
+     backward kernel at these inputs; (a-ii) the stream build under
+     SPLAT_SEG_BROADCAST=cond with the observed window: the layout equal
+     to the default build's, the seg_broadcast kernel launched with no
+     fallback, its time beside the default expansion's; (b) the port's
+     Trainer, 1M random-init gaussians at 1280x720, SH degree 3, GT
+     rendered by the port from 200k gaussians seen by 8 ring cameras,
+     with a densification refine in its 6 steps, and its checkpoint
+     served back through the viewer's loader; (c) the same Trainer with
+     raster_impl="tiled", 4 steps and a refine, its first loss against
+     (b)'s; (d) make_synthetic_scene on the card (its defaults, the
+     surface rings, spherical), its tiled GT against the stream render;
   6. the kernels line (JSON), then the card line, then the result line.
 """
 
+import contextlib
 import dataclasses
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -54,6 +71,9 @@ OPS_PER_PAIR = 26  # forward f32 operations per evaluated (pixel, slot) pair, ex
 OPS_PER_PAIR_BWD = 55
 N_SERVE, W_SERVE, H_SERVE, SH_SERVE = 1_000_000, 1280, 720, 3
 N_GT, N_VIEWS, TRAIN_STEPS = 200_000, 8, 6
+TRAIN_CAPACITY = 1_048_576  # the Trainers' splat buffers (phases 5b, 5c)
+TILED_STEPS = 4  # phase 5c
+REL_RENDER, REL_GRAD = 1e-5, 5e-4  # stream vs tiled (tests/test_stream_raster.py)
 
 
 def log(*a):
@@ -137,6 +157,245 @@ def oracle_scene(n=300, seed=0):
                 viewmats=np.eye(4, dtype=np.float32)[None],
                 Ks=np.float32([[[60.0, 0, 32], [0, 60.0, 32], [0, 0, 1]]]),
                 w=64, h=64, camera_model="pinhole")
+
+
+# ------------------------------------------------------- tiled helpers
+def project(sc, dev):
+    """Project a scene dict on ``dev``."""
+    import torch
+    from splat_one_tpu_torch.ops.projection import project_gaussians
+
+    t = lambda x: torch.as_tensor(x, device=dev)
+    kw = (dict(sh_coeffs=t(sc["sh"]), sh_degree=3 if sc["sh"].shape[1] == 16 else 1)
+          if "sh" in sc else dict(colors=t(sc["colors"])))
+    return project_gaussians(t(sc["means"]), t(sc["quats"]), t(sc["scales"]),
+                             t(sc["opac"]), t(sc["viewmats"]), t(sc["Ks"]),
+                             sc["w"], sc["h"], camera_model=sc["camera_model"], **kw)
+
+
+def tile_inputs(sc, proj):
+    """The gen-1 layout of a projected scene at IsectCaps.choose defaults
+    -> (cfg, tile_starts, packed, isect)."""
+    from splat_one_tpu_torch.ops import intersect as itx
+    from splat_one_tpu_torch.ops.tile_raster import RasterCfg
+
+    C, N = proj.depths.shape
+    w, h = sc["w"], sc["h"]
+    caps = itx.IsectCaps.choose(N, C, (-(-w // 16)) * (-(-h // 16)))
+    isect = itx.build_intersections(proj, w, h, 16, caps, camera_model=sc["camera_model"])
+    require(not bool(isect.overflow), "tiled layout overflow")
+    cfg = RasterCfg(width=w, height=h, tile_size=16, num_cameras=C, num_gaussians=N,
+                    chunk=caps.chunk, align_cap=caps.align_cap,
+                    wrap_x=(sc["camera_model"] == "spherical"))
+    packed = itx.pack_fields(proj.means2d, proj.conics, proj.colors, proj.opacities,
+                             proj.depths, isect)
+    return cfg, isect.tile_starts, packed, isect
+
+
+def timed_once(fn):
+    """(fn(), its ms by CUDA events) for one call."""
+    import torch
+
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def compare_tile_fwd(name, cfg, starts, packed):
+    """tile_fwd kernel vs its plain version -> (max abs err, kernel out,
+    plain ms)."""
+    import torch
+    from splat_one_tpu_torch.ops import tile_raster as tr
+
+    out_k = tr.tile_fwd(cfg, starts, packed)
+    out_p, plain_ms = timed_once(lambda: tr.tile_fwd_plain(cfg, starts, packed))
+    worst = column_err(name, "tile_fwd", out_k[:, :5].transpose(0, 1).reshape(5, -1).T,
+                       out_p[:, :5].transpose(0, 1).reshape(5, -1).T)
+    require(bool(torch.equal(out_k[:, tr.CH_NCHUNKS], out_p[:, tr.CH_NCHUNKS])),
+            f"{name}: tile n_chunks differ")
+    require(not bool(out_k[:, 6:].any()), f"{name}: tile pad channels not zero")
+    return worst, out_k, plain_ms
+
+
+def compare_tile_bwd(name, cfg, starts, packed, out, gout):
+    """tile_bwd kernel vs its plain version -> (max abs err, kernel rows,
+    plain ms)."""
+    from splat_one_tpu_torch.ops import intersect as itx
+    from splat_one_tpu_torch.ops import tile_raster as tr
+
+    pg_k = tr.tile_bwd(cfg, starts, packed, out, gout)
+    pg_p, plain_ms = timed_once(lambda: tr.tile_bwd_plain(cfg, starts, packed, out, gout))
+    require(not bool(pg_k[:, itx.N_GROWS:].any()), f"{name}: tile_bwd pad columns")
+    return column_err(name, "tile_bwd", pg_k, pg_p), pg_k, plain_ms
+
+
+def tile_work(cfg, out):
+    """(chunks processed over all tiles, (pixel, slot) pairs): every slot of
+    a processed chunk is evaluated at all 256 pixels, in the forward and
+    in the backward's replay alike."""
+    from splat_one_tpu_torch.ops import tile_raster as tr
+
+    n_chunks = int(out[:, tr.CH_NCHUNKS, 0].sum())
+    return n_chunks, n_chunks * cfg.chunk * cfg.npix
+
+
+def seg_broadcast_problem(proj, w, h, camera_model):
+    """The stream builder's expansion problem for a projection:
+    (sx0, sy0, span, ka, offsets, depth, counts), as
+    stream_isect.build_stream_intersections hands it to seg_broadcast."""
+    import torch
+    from splat_one_tpu_torch.ops import stream_isect as si
+
+    sx0, span_x, sy0, span_y = si.parent_spans(proj, w, h, 16, si.SS, camera_model)
+    counts = span_x * span_y
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
+    return (sx0, sy0, torch.clamp(span_x, min=1), torch.zeros_like(counts), offsets,
+            proj.depths.reshape(-1), counts)
+
+
+def compare_seg_broadcast(name, prob, exp_cap, slab):
+    """seg_broadcast kernel vs its plain version (every output equal) and,
+    where every window covers its chunk, the kernel path vs the default
+    expansion on the live slots -> (plain ms, covered)."""
+    import torch
+    from splat_one_tpu_torch.ops import seg_broadcast as sgb
+
+    okv, pbases, offs_pad = sgb.coverage_windows(prob[4], prob[6], exp_cap, slab)
+    table = sgb.parent_table(*prob[:6])
+    m_k = sgb.expand_parent_meta(table, offs_pad, pbases, slab)
+    m_p, plain_ms = timed_once(
+        lambda: sgb.expand_parent_meta_plain(table, offs_pad, pbases, slab))
+    require(bool(torch.equal(m_k, m_p)), f"{name}: seg_broadcast kernel vs plain differ")
+    covered = bool(okv.all())
+    n_live = min(int(prob[4][-1] + prob[6][-1]), exp_cap)
+    if covered:
+        got = sgb.expand_meta_streamed(*prob, exp_cap, "kernel", slab)
+        want = sgb.expand_meta_streamed(*prob, exp_cap, "xla")
+        for g, w_, col in zip(got, want, ("sx0", "sy0", "span", "ka", "off", "depth",
+                                          "parent")):
+            require(bool(torch.equal(g[:n_live], w_[:n_live])),
+                    f"{name}: seg_broadcast {col} differs from the default expansion")
+    log(f"  {name}: seg_broadcast kernel equal to its plain version over {exp_cap} "
+        f"slots (slab {slab}); {'kernel path equal to the default expansion on the ' + str(n_live) + ' live slots' if covered else 'a window does not cover its chunk'}")
+    return plain_ms, covered
+
+
+@contextlib.contextmanager
+def seg_broadcast_path(value):
+    """SPLAT_SEG_BROADCAST set to ``value`` (None: unset) inside the block."""
+    old = os.environ.pop("SPLAT_SEG_BROADCAST", None)
+    if value is not None:
+        os.environ["SPLAT_SEG_BROADCAST"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("SPLAT_SEG_BROADCAST", None)
+        if old is not None:
+            os.environ["SPLAT_SEG_BROADCAST"] = old
+
+
+def ragged_problem(dev, mp=300_000, seed=3):
+    """tests/test_seg_broadcast.py's ragged runs at scale: counts 1-8, a
+    third of the parents with none, random metadata and depths."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, 9, size=mp)
+    counts[rng.uniform(size=mp) < 0.35] = 0
+    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    cols = [rng.integers(0, 40, mp), rng.integers(0, 23, mp), rng.integers(1, 6, mp),
+            rng.integers(0, 1000, mp), offsets]
+    depth = (rng.normal(size=mp) * 37.3 + 5).astype(np.float32)
+    t = lambda x: torch.as_tensor(x, device=dev)
+    return tuple(t(c).long() for c in cols) + (t(depth), t(counts).long())
+
+
+def stream_vs_tiled(dev):
+    """The port's two rasterizer paths on the small pinhole and spherical
+    scenes (tests/test_stream_raster.py::test_stream_matches_tiled): loss
+    and renders within REL_RENDER, every input gradient within REL_GRAD."""
+    import torch
+    from splat_one_tpu_torch.render.rasterization import rasterization
+
+    names = ("means", "quats", "scales", "opac", "colors")
+    for spherical in (False, True):
+        sc = stream_scene(spherical=spherical)
+        res = {}
+        for impl in ("stream", "tiled"):
+            leaves = [torch.tensor(sc[k], device=dev, requires_grad=True) for k in names]
+            vm, K = (torch.as_tensor(sc[k], device=dev) for k in ("viewmats", "Ks"))
+            render, alpha, info = rasterization(*leaves, vm, K, sc["w"], sc["h"],
+                                                render_mode="RGB+ED",
+                                                camera_model=sc["camera_model"], impl=impl)
+            require(not bool(info["overflow"]), f"{impl} overflow")
+            wts = torch.linspace(0.5, 1.5, render.numel(), device=dev).reshape(render.shape)
+            loss = (render * wts).sum() + 0.3 * alpha.sum()
+            res[impl] = (float(loss.detach()), render.detach(), alpha.detach(),
+                         torch.autograd.grad(loss, leaves))
+        (l_s, r_s, a_s, g_s), (l_t, r_t, a_t, g_t) = res["stream"], res["tiled"]
+        rel = lambda a, b: float((a - b).abs().max() / (b.abs().max() + 1e-8))
+        errs = [abs(l_s - l_t) / abs(l_t), rel(r_s, r_t), rel(a_s, a_t)]
+        require(max(errs) < REL_RENDER, f"{sc['camera_model']}: stream vs tiled {errs}")
+        gerr = [rel(x, y) for x, y in zip(g_s, g_t)]
+        require(max(gerr) < REL_GRAD, f"{sc['camera_model']}: stream vs tiled grads {gerr}")
+        log(f"  stream vs tiled, {sc['camera_model']} 64x48: loss/render/alpha rel "
+            f"{max(errs):.2e} (bar {REL_RENDER}), gradients rel {max(gerr):.2e} "
+            f"(bar {REL_GRAD})")
+
+
+def tiled_kernel_checks(scenes, dev, max_err):
+    """Phase 3b (see the module docstring)."""
+    import torch
+    from splat_one_tpu_torch.ops import seg_broadcast as sgb
+    from splat_one_tpu_torch.ops import stream_isect as si
+    from splat_one_tpu_torch.utils import cuda_build
+
+    log("phase 3b: tile_fwd, tile_bwd and seg_broadcast kernels vs plain versions")
+    for i, (name, sc) in enumerate(scenes.items()):
+        proj = project(sc, dev)
+        cfg, starts, packed, isect = tile_inputs(sc, proj)
+        e_f, out_k, _ = compare_tile_fwd(name, cfg, starts, packed)
+        rng = np.random.default_rng(10 + i)
+        gout = torch.as_tensor(rng.normal(size=tuple(out_k.shape)).astype(np.float32),
+                               device=dev)
+        e_b, pg_k, _ = compare_tile_bwd(name, cfg, starts, packed, out_k, gout)
+        max_err["tile_fwd"] = max(max_err["tile_fwd"], e_f)
+        max_err["tile_bwd"] = max(max_err["tile_bwd"], e_b)
+        log(f"  {name}: CT={cfg.ct}, n_isect {int(isect.n_isect)}; tile_fwd abs err "
+            f"{e_f:.3e}, n_chunks equal; tile_bwd abs err {e_b:.3e} over "
+            f"{int((pg_k.abs().amax(1) > 0).sum())} written rows")
+        # seg_broadcast on the same scene's stream build
+        C, N = proj.depths.shape
+        _, _, sw, sh = si.supertile_grid(sc["w"], sc["h"], 16)
+        caps = si.StreamCaps.choose(N, C, C * sw * sh)
+        prob = seg_broadcast_problem(proj, sc["w"], sc["h"], sc["camera_model"])
+        compare_seg_broadcast(name, prob, caps.exp_cap, caps.sb_slab)
+        with seg_broadcast_path(None):
+            want = si.build_stream_intersections(proj, sc["w"], sc["h"], 16, caps,
+                                                 camera_model=sc["camera_model"])
+        with seg_broadcast_path("cond"):
+            fb = dict(cuda_build.launch_counts).get("seg_broadcast_fallback", 0)
+            got = si.build_stream_intersections(proj, sc["w"], sc["h"], 16, caps,
+                                                camera_model=sc["camera_model"])
+            require(dict(cuda_build.launch_counts).get("seg_broadcast_fallback", 0) == fb,
+                    f"{name}: seg_broadcast fell back")
+        for f in want._fields:
+            require(bool(torch.equal(getattr(got, f), getattr(want, f))),
+                    f"{name}: stream layout field {f} differs under SPLAT_SEG_BROADCAST=cond")
+        torch.cuda.synchronize()
+    prob = ragged_problem(dev)
+    n_isect = int(prob[4][-1] + prob[6][-1])
+    exp_cap = -(-(n_isect + 2048) // 1024) * 1024
+    slab = sgb.required_slab(prob[4], prob[6], exp_cap)
+    _, covered = compare_seg_broadcast(f"ragged {prob[0].shape[0]} parents, zero-count runs",
+                                       prob, exp_cap, slab)
+    require(covered and slab < sgb.SLAB, f"ragged problem: slab {slab}, covered {covered}")
+    max_err["seg_broadcast"] = 0.0  # every comparison above is exact equality
+    stream_vs_tiled(dev)
 
 
 # ------------------------------------------------------------- helpers
@@ -347,11 +606,11 @@ def compare_bwd(name, cfg, st_starts, st_starts_al, packed, out, gout, m0):
     return e_bwd, e_red, pg_k, rows, bounds
 
 
-def oracle_grad_check(dev):
-    """End-to-end gradients through the kernels vs the dense oracle by
-    autograd: tests/test_rasterizer.py::TestGradParity (150 gaussians,
-    seed 7, 64x64, SH degree 1, random weights on rgb, alpha and expected
-    depth), each gradient within GRAD_RTOL of its max."""
+def oracle_grad_check(dev, impl="stream"):
+    """End-to-end gradients through the kernels of ``impl`` vs the dense
+    oracle by autograd: tests/test_rasterizer.py::TestGradParity (150
+    gaussians, seed 7, 64x64, SH degree 1, random weights on rgb, alpha and
+    expected depth), each gradient within GRAD_RTOL of its max."""
     import torch
     from splat_one_tpu_torch.ops.projection import project_gaussians
     from splat_one_tpu_torch.ops.reference import composite_reference
@@ -368,7 +627,7 @@ def oracle_grad_check(dev):
         vm, K = (torch.as_tensor(sc[k], device=dev) for k in ("viewmats", "Ks"))
         if path == "kernels":
             render, alpha, _ = rasterization(*leaves[:4], leaves[4], vm, K, 64, 64,
-                                             sh_degree=1, render_mode="RGB+ED")
+                                             sh_degree=1, render_mode="RGB+ED", impl=impl)
             rgb, d_exp = render[..., :3], render[..., 3:]
         else:
             proj = project_gaussians(*leaves[:4], vm, K, 64, 64, sh_coeffs=leaves[4],
@@ -383,8 +642,8 @@ def oracle_grad_check(dev):
         require(bool(torch.isfinite(gk).all()), f"oracle grads: {name} not finite")
         require(rel <= GRAD_RTOL, f"oracle grads: {name} rel err {rel:.3e}")
         worst = max(worst, rel)
-    log(f"  oracle 64x64 (150 gaussians) end-to-end gradients, kernels vs dense "
-        f"oracle by autograd: worst rel err {worst:.2e} (bar {GRAD_RTOL})")
+    log(f"  oracle 64x64 (150 gaussians) end-to-end gradients, {impl} kernels vs "
+        f"dense oracle by autograd: worst rel err {worst:.2e} (bar {GRAD_RTOL})")
 
 
 def bench_caps(proj, w, h):
@@ -676,12 +935,16 @@ def training_phase(dev, card, sc, max_err):
         f"backward's rows: key sort + seg_reduce kernel {e2e_k_ms:.4f} ms, keyed-row "
         f"selection + index_add_ {e2e_l_ms:.4f} ms (CUDA events; max abs diff to the "
         f"kernel {lib_diff:.2e}) | {card}")
-    del proj, psg, g_split, grads, pg, rows, seg, pg_k, rows_k, payload, keys, leaves
+    del proj, psg, g_split, pg, rows, seg, pg_k, rows_k, payload, keys
     del keyed, keys_live, payload_live, red_ref
+    torch.cuda.empty_cache()
+    tile_bwd_row = tiled_step_phase(dev, card, leaves, vm, Kt, grads, max_err)
+    sb_row = seg_broadcast_phase(dev, card, leaves, vm, Kt, proj0, caps)
+    del grads, leaves
     torch.cuda.empty_cache()
 
     # (b) the port's Trainer at full width
-    log(f"phase 5b: Trainer, {N} random-init gaussians (capacity 1,048,576), SH 3, "
+    log(f"phase 5b: Trainer, {N} random-init gaussians (capacity {TRAIN_CAPACITY}), SH 3, "
         f"{W}x{H}, {TRAIN_STEPS} steps; GT: {N_GT} gaussians, {N_VIEWS} ring views | {card}")
     t0 = time.perf_counter()
     scene = ring_scene(dev)
@@ -690,7 +953,7 @@ def training_phase(dev, card, sc, max_err):
     try:
         tcfg = Config(
             result_dir=tmp, camera_model="pinhole", sh_degree=3, batch_size=1,
-            init_type="random", init_num_pts=N, capacity=1_048_576,
+            init_type="random", init_num_pts=N, capacity=TRAIN_CAPACITY,
             max_steps=TRAIN_STEPS, eval_steps=[TRAIN_STEPS], save_steps=[TRAIN_STEPS],
             tb_every=TRAIN_STEPS, test_every=8,
             strategy=DefaultStrategyCfg(refine_start_iter=2, refine_stop_iter=100,
@@ -749,8 +1012,14 @@ def training_phase(dev, card, sc, max_err):
                 "checkpoint render")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    del trainer, fn
+    torch.cuda.empty_cache()
 
-    return {"launches": tcounts, "kernels": [
+    tiled_counts = tiled_trainer_phase(dev, card, scene, losses[0])
+    synthetic_phase(dev, card)
+    tile_bwd_row["launches"] = tiled_counts.get("tile_bwd", 0)
+    return {"launches": tcounts, "tiled_launches": tiled_counts,
+            "tile_bwd": tile_bwd_row, "seg_broadcast": sb_row, "kernels": [
         dict(name="stream_bwd", route="cuda", source="splat_one_tpu_torch/csrc/stream_bwd.cu",
              replaces="splat_one_tpu/ops/stream_raster.py:397",
              launches=tcounts.get("stream_bwd", 0), max_abs_err=max_err["stream_bwd"],
@@ -762,6 +1031,366 @@ def training_phase(dev, card, sc, max_err):
              ms=red_ms, plain_ms=red_plain_ms, bound_ms=red_bound, bound_by="bytes",
              library_ms=lib_ms),
     ]}
+
+
+# ------------------------------------------------------- tiled phases
+def tiled_render_phase(dev, card, sc, max_err):
+    """Phase 4b (see the module docstring). Returns the kernels-line row
+    of tile_fwd without its launches."""
+    import torch
+    from splat_one_tpu_torch.ops import intersect as itx
+    from splat_one_tpu_torch.ops import tile_raster as tr
+    from splat_one_tpu_torch.ops.projection import project_gaussians
+    from splat_one_tpu_torch.render.rasterization import rasterization
+    from splat_one_tpu_torch.utils import cuda_build
+
+    W, H, N = W_SERVE, H_SERVE, N_SERVE
+    caps = itx.IsectCaps.choose(N, 1, (-(-W // 16)) * (-(-H // 16)))
+    log(f"phase 4b: tiled render, {N} gaussians, SH 3, {W}x{H}, impl='tiled' at "
+        f"IsectCaps.choose defaults (exp_cap {caps.exp_cap}, align_cap {caps.align_cap}) "
+        f"| {card}")
+    t = lambda x: torch.as_tensor(x, device=dev)
+    g = [t(sc[k]) for k in ("means", "quats", "scales", "opac", "sh")]
+    vm, K = t(sc["viewmats"]), t(sc["Ks"])
+    inputs = {}
+    with torch.no_grad():
+        for cm in ("pinhole", "spherical"):
+            cuda_build.launch_counts.clear()
+            render_t, alpha_t, info = rasterization(*g, vm, K, W, H, sh_degree=3,
+                                                    render_mode="RGB+D", camera_model=cm,
+                                                    impl="tiled")
+            torch.cuda.synchronize()
+            counts = dict(cuda_build.launch_counts)
+            require(counts.get("tile_fwd", 0) == 1 and not counts.get("stream_fwd"),
+                    f"{cm}: tiled render launches {counts}")
+            require(not bool(info["overflow"]), f"{cm}: tiled render overflow")
+            render_s, alpha_s, info_s = rasterization(*g, vm, K, W, H, sh_degree=3,
+                                                      render_mode="RGB+D", camera_model=cm)
+            err = max(float((render_t - render_s).abs().max()),
+                      float((alpha_t - alpha_s).abs().max()))
+            require(err <= ORACLE_ATOL and bool(torch.isfinite(render_t).all()),
+                    f"{cm}: tiled vs stream render abs err {err:.3e}")
+            log(f"  {cm}: n_isect {int(info['n_isect'])} tile intersections "
+                f"({int(info_s['n_isect'])} supertile slots); tiled vs stream render "
+                f"max abs diff {err:.2e} (rgb, depth, alpha; bar {ORACLE_ATOL}); "
+                f"launches {counts}")
+            proj = project_gaussians(*g[:4], vm, K, W, H, sh_coeffs=g[4], sh_degree=3,
+                                     camera_model=cm)
+            inputs[cm] = tile_inputs(dict(w=W, h=H, camera_model=cm), proj)
+        del proj, render_t, alpha_t, render_s, alpha_s
+
+        cfg, st, packed, isect = inputs["pinhole"]
+        layers = {"projection": [], "build": [], "pack": [], "kernel": [], "assembly": []}
+        for _ in range(5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            ev[0].record()
+            proj = project_gaussians(*g[:4], vm, K, W, H, sh_coeffs=g[4], sh_degree=3)
+            ev[1].record()
+            isect = itx.build_intersections(proj, W, H, 16, caps)
+            ev[2].record()
+            packed = itx.pack_fields(proj.means2d, proj.conics, proj.colors,
+                                     proj.opacities, proj.depths, isect)
+            ev[3].record()
+            out = tr.tile_fwd(cfg, isect.tile_starts, packed)
+            ev[4].record()
+            rgb, a, d = tr.tiles_to_image(cfg, out)
+            img = torch.cat([rgb, d / torch.clamp(a, min=1e-10)], dim=-1)
+            ev[5].record()
+            torch.cuda.synchronize()
+            for i, key in enumerate(layers):
+                layers[key].append(ev[i].elapsed_time(ev[i + 1]))
+        require(bool(torch.isfinite(img).all()), "tiled layer split output")
+        log("  layers, pinhole (median of 5, CUDA events): " + ", ".join(
+            f"{k} {statistics.median(v):.3f} ms" for k, v in layers.items()))
+        trace = device_trace(lambda: itx.build_intersections(proj, W, H, 16, caps), 3)
+        if trace is not None:
+            log(f"  trace tiled build (torch.profiler, 3 builds): {trace[0]:.0f} device "
+                f"activities, busy {trace[1]:.3f} ms, idle share {trace[2]:.3f}")
+            for kname, n, ms in trace[3]:
+                log(f"    {ms:.3f} ms, {n:.0f}x per build: {kname[:100]}")
+        st = isect.tile_starts
+        e, out_k, plain_ms = compare_tile_fwd("tiled 1M pinhole", cfg, st, packed)
+        max_err["tile_fwd"] = max(max_err["tile_fwd"], e)
+        e_s, out_s, _ = compare_tile_fwd("tiled 1M spherical", *inputs["spherical"][:3])
+        max_err["tile_fwd"] = max(max_err["tile_fwd"], e_s)
+        kernel_ms = cuda_ms(lambda: tr.tile_fwd(cfg, st, packed), 20)
+        sph_ms = cuda_ms(lambda: tr.tile_fwd(*inputs["spherical"][:3]), 10)
+        n_chunks, pairs = tile_work(cfg, out_k)
+        bytes_moved = n_chunks * cfg.chunk * itx.NF * 4 + (cfg.ct + 1) * 4 + out_k.numel() * 4
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = pairs * OPS_PER_PAIR / F32_OPS_PER_S * 1e3
+        bound_ms, bound_by = max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        rasterization(*g, vm, K, W, H, sh_degree=3, render_mode="RGB+ED", impl="tiled")
+        torch.cuda.synchronize()
+        peak_mib = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+    log(f"  tile_fwd at 1M/720p pinhole: {kernel_ms:.4f} ms (CUDA events, 20 launches); "
+        f"spherical {sph_ms:.4f} ms; plain version {plain_ms:.1f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({n_chunks} chunks processed of "
+        f"{int(isect.n_slots) // cfg.chunk}, {pairs / 1e6:.1f} M pixel-slot pairs x "
+        f"{OPS_PER_PAIR} ops, {bytes_moved / 1e6:.1f} MB); render peak memory above the "
+        f"inputs {peak_mib:.0f} MiB | {card}")
+    return dict(name="tile_fwd", route="cuda", source="splat_one_tpu_torch/csrc/tile_fwd.cu",
+                replaces="splat_one_tpu/ops/tile_raster.py:147", max_abs_err=None,
+                ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+def tiled_step_phase(dev, card, leaves, vm, Kt, grads_stream, max_err):
+    """Phase 5a-i (see the module docstring). Returns the kernels-line row
+    of tile_bwd without its launches."""
+    import torch
+    from splat_one_tpu_torch.ops import intersect as itx
+    from splat_one_tpu_torch.ops import tile_raster as tr
+    from splat_one_tpu_torch.ops.projection import Projected, project_gaussians
+    from splat_one_tpu_torch.render.rasterization import rasterization
+    from splat_one_tpu_torch.utils import cuda_build
+
+    W, H, N = W_SERVE, H_SERVE, N_SERVE
+    names = ("means", "quats", "scales", "opac", "sh")
+    log(f"phase 5a-i: the same step through impl='tiled' | {card}")
+
+    def step():
+        render, alpha, info = rasterization(*leaves[:4], leaves[4], vm, Kt, W, H,
+                                            sh_degree=3, render_mode="RGB+ED", impl="tiled")
+        loss = render.sum() + alpha.sum()
+        return loss, torch.autograd.grad(loss, leaves), info
+
+    step()
+    torch.cuda.synchronize()
+    cuda_build.launch_counts.clear()
+    times = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        loss, grads, info = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(cuda_build.launch_counts)
+    for k in ("tile_fwd", "tile_bwd", "seg_reduce"):
+        require(counts.get(k, 0) == 7, f"tiled step: {k} launched {counts.get(k, 0)} times")
+    require(not counts.get("stream_fwd") and not counts.get("stream_bwd"),
+            f"tiled step launched a stream kernel: {counts}")
+    require(not bool(info["overflow"]) and bool(torch.isfinite(loss)), "tiled step")
+    rels = []
+    for name, gt, gs in zip(names, grads, grads_stream):
+        rel = float((gt - gs).abs().max() / gs.abs().max())
+        require(bool(torch.isfinite(gt).all()) and rel <= REL_GRAD,
+                f"tiled step gradient {name} vs the stream step's: rel {rel:.3e}")
+        rels.append(rel)
+    step_ms = statistics.median(times)
+    log(f"  step: median {step_ms:.3f} ms over 7 (host clock, synchronized), "
+        f"{W * H / step_ms / 1e3:.3f} Mpix/s; n_isect {int(info['n_isect'])}; launch "
+        f"counts {counts}; gradients vs the stream step's: worst rel {max(rels):.2e} "
+        f"(bar {REL_GRAD}) | {card}")
+
+    # the tiled backward kernel at these inputs, with the step's cotangent
+    with torch.no_grad():
+        proj = project_gaussians(*(x.detach() for x in leaves[:4]), vm, Kt, W, H,
+                                 sh_coeffs=leaves[4].detach(), sh_degree=3)
+        cfg, st, packed, isect = tile_inputs(dict(w=W, h=H, camera_model="pinhole"),
+                                             Projected(*proj))
+        out = tr.tile_fwd(cfg, st, packed)
+    out_leaf = out.detach().requires_grad_(True)
+    rgb, a, d = tr.tiles_to_image(cfg, out_leaf)
+    gl = torch.cat([rgb, d / torch.clamp(a, min=1e-10)], -1).sum() + a.sum()
+    gout, = torch.autograd.grad(gl, out_leaf)
+    e_b, pg_k, plain_ms = compare_tile_bwd("tiled 1M pinhole step", cfg, st, packed, out, gout)
+    max_err["tile_bwd"] = max(max_err["tile_bwd"], e_b)
+    bwd_ms = cuda_ms(lambda: tr.tile_bwd(cfg, st, packed, out, gout), 10)
+    red_ms = cuda_ms(lambda: itx.gather_reduction(pg_k, isect, N), 10)
+    n_chunks, pairs = tile_work(cfg, out)
+    # replayed slot rows read and gradient rows written (64 B each),
+    # fwd_out channels 0-5 and gout channels 0-4 read
+    bwd_bytes = 2 * n_chunks * cfg.chunk * itx.NF * 4 + (6 + 5) * cfg.ct * cfg.npix * 4
+    ops_per_pair = OPS_PER_PAIR_BWD + itx.N_GROWS
+    bytes_ms = bwd_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = pairs * ops_per_pair / F32_OPS_PER_S * 1e3
+    bound_ms, bound_by = max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+    log(f"  tile_bwd at 1M/720p: {bwd_ms:.4f} ms (CUDA events, 10 launches); plain version "
+        f"{plain_ms:.1f} ms; bound {bound_ms:.4f} ms by {bound_by} ({n_chunks} chunks "
+        f"replayed, {pairs / 1e6:.1f} M pixel-slot pairs x {ops_per_pair} ops, "
+        f"{bwd_bytes / 1e6:.1f} MB); abs err vs plain {e_b:.3e}; the per-gaussian "
+        f"reduction (row gather + seg_reduce + un-permute) {red_ms:.4f} ms | {card}")
+    return dict(name="tile_bwd", route="cuda", source="splat_one_tpu_torch/csrc/tile_bwd.cu",
+                replaces="splat_one_tpu/ops/tile_raster.py:221", max_abs_err=None,
+                ms=bwd_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+def seg_broadcast_phase(dev, card, leaves, vm, Kt, proj0, caps):
+    """Phase 5a-ii (see the module docstring). Returns the kernels-line
+    row of seg_broadcast."""
+    import torch
+    from splat_one_tpu_torch.ops import seg_broadcast as sgb
+    from splat_one_tpu_torch.ops import stream_isect as si
+    from splat_one_tpu_torch.render.rasterization import rasterization
+    from splat_one_tpu_torch.utils import cuda_build
+
+    W, H = W_SERVE, H_SERVE
+    slab = si.observed_sb_slab(proj0, W, H, 16, caps)
+    caps_sb = dataclasses.replace(caps, sb_slab=slab)
+    log(f"phase 5a-ii: stream build under SPLAT_SEG_BROADCAST=cond, observed window "
+        f"{slab} parents (observed_sb_slab), exp_cap {caps.exp_cap} | {card}")
+    with seg_broadcast_path(None):
+        want = si.build_stream_intersections(proj0, W, H, 16, caps_sb)
+    with seg_broadcast_path("cond"), torch.no_grad():
+        cuda_build.launch_counts.clear()
+        render, alpha, info = rasterization(*(x.detach() for x in leaves[:4]),
+                                            leaves[4].detach(), vm, Kt, W, H, sh_degree=3,
+                                            render_mode="RGB+ED", caps=caps_sb)
+        torch.cuda.synchronize()
+        counts = dict(cuda_build.launch_counts)
+        got = si.build_stream_intersections(proj0, W, H, 16, caps_sb)
+    require(counts.get("seg_broadcast", 0) == 1 and not counts.get("seg_broadcast_fallback"),
+            f"seg_broadcast launches on the cond path: {counts}")
+    require(not bool(info["overflow"]) and bool(torch.isfinite(render).all()), "cond render")
+    for f in want._fields:
+        require(bool(torch.equal(getattr(got, f), getattr(want, f))),
+                f"stream layout field {f} differs under SPLAT_SEG_BROADCAST=cond")
+    log(f"  rasterization under cond: launch counts {counts}; every StreamIsect field "
+        f"equal to the default build's (n_isect {int(want.n_isect)})")
+    prob = seg_broadcast_problem(proj0, W, H, "pinhole")
+    exp_cap = caps.exp_cap
+    plain_ms, covered = compare_seg_broadcast("1M pinhole", prob, exp_cap, slab)
+    require(covered, "the observed window does not cover the 1M problem")
+    okv, pbases, offs_pad = sgb.coverage_windows(prob[4], prob[6], exp_cap, slab)
+    table = sgb.parent_table(*prob[:6])
+    k_ms = cuda_ms(lambda: sgb.expand_parent_meta(table, offs_pad, pbases, slab), 20)
+    path_ms = cuda_ms(lambda: sgb.expand_meta_streamed(*prob, exp_cap, "kernel", slab), 10)
+    default_ms = cuda_ms(lambda: sgb.expand_meta_streamed(*prob, exp_cap, "xla"), 10)
+    mp = table.shape[0]
+    n_isect = int(want.n_isect)
+    parents = torch.arange(mp, device=dev)
+
+    def library():  # one PyTorch call for the slot -> parent map, one row gather
+        g = torch.repeat_interleave(parents, prob[6], output_size=n_isect)
+        return table[g]
+
+    lib_ms = cuda_ms(library, 10)
+    m_k = sgb.expand_parent_meta(table, offs_pad, pbases, slab)
+    require(bool(torch.equal(library()[:, :6].T, m_k[:6, :n_isect])),
+            "repeat_interleave expansion differs from the kernel's")
+    nb = pbases.shape[0]
+    sb_bytes = nb * (slab + 1) * 4 + sgb.N_OUT * 4 * nb * sgb.CH
+    bound_ms = sb_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  seg_broadcast at 1M/720p: {k_ms:.4f} ms (CUDA events, 20 launches; with the "
+        f"parent table and int64 columns {path_ms:.4f} ms); plain version {plain_ms:.1f} ms; "
+        f"bound {bound_ms:.4f} ms by bytes ({sb_bytes / 1e6:.1f} MB: {nb} windows of "
+        f"{slab + 1} offsets, 7 x 4 B per slot); the default index_add_ + cumsum + gather "
+        f"expansion {default_ms:.4f} ms; repeat_interleave + row gather {lib_ms:.4f} ms "
+        f"| {card}")
+    return dict(name="seg_broadcast", route="cuda",
+                source="splat_one_tpu_torch/csrc/seg_broadcast.cu",
+                replaces="splat_one_tpu/ops/seg_broadcast.py:73",
+                launches=counts.get("seg_broadcast", 0), max_abs_err=0.0, ms=k_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms)
+
+
+def tiled_trainer_phase(dev, card, scene, first_loss):
+    """Phase 5c (see the module docstring): the phase-5b Trainer through
+    raster_impl="tiled". Returns the run's launch counts."""
+    import torch
+    from splat_one_tpu_torch.ops.intersect import IsectCaps
+    from splat_one_tpu_torch.train.config import Config
+    from splat_one_tpu_torch.train.strategy import DefaultStrategyCfg
+    from splat_one_tpu_torch.train.trainer import Trainer
+    from splat_one_tpu_torch.utils import cuda_build
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tiled_")
+    try:
+        tcfg = Config(
+            result_dir=tmp, camera_model="pinhole", sh_degree=3, batch_size=1,
+            init_type="random", init_num_pts=N_SERVE, capacity=TRAIN_CAPACITY,
+            raster_impl="tiled", max_steps=TILED_STEPS, eval_steps=[TILED_STEPS],
+            save_steps=[], tb_every=TILED_STEPS, test_every=8,
+            strategy=DefaultStrategyCfg(refine_start_iter=2, refine_stop_iter=100,
+                                        refine_every=3, reset_every=5))
+        trainer = Trainer(tcfg, scene)
+        caps0 = trainer.caps
+        require(isinstance(caps0, IsectCaps), f"tiled Trainer caps {caps0}")
+        log(f"phase 5c: Trainer(raster_impl='tiled'), {N_SERVE} random-init gaussians "
+            f"(capacity {TRAIN_CAPACITY}: exp_cap {caps0.exp_cap}, align_cap {caps0.align_cap}), "
+            f"SH 3, {W_SERVE}x{H_SERVE}, {TILED_STEPS} steps, phase 5b's scene | {card}")
+        torch.cuda.synchronize()
+        cuda_build.launch_counts.clear()
+        t0 = time.perf_counter()
+        hist = trainer.train(log_every=1)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = dict(cuda_build.launch_counts)
+        log(f"  launch counts on the tiled training path ({TILED_STEPS} steps, 1 refine, "
+            f"1 eval render): {counts}")
+        for k, n in (("tile_fwd", TILED_STEPS + 1), ("tile_bwd", TILED_STEPS),
+                     ("seg_reduce", TILED_STEPS)):
+            require(counts.get(k, 0) == n, f"{k} launched {counts.get(k, 0)} times, not {n}")
+        require(not any(counts.get(k) for k in ("stream_fwd", "stream_bwd")),
+                f"the tiled Trainer launched a stream kernel: {counts}")
+        losses = [h["loss"] for h in hist]
+        n_gs = [h["num_GS"] for h in hist]
+        require(len(hist) == TILED_STEPS and all(np.isfinite(losses)), f"losses {losses}")
+        require(all(h["overflow"] == 0 for h in hist),
+                f"tiled Trainer overflow: {[h['overflow'] for h in hist]}")
+        require(n_gs[2] != n_gs[1], f"the refine at step 3 left the alive count at {n_gs[1]}")
+        rel = abs(losses[0] - first_loss) / abs(first_loss)
+        require(rel <= 1e-4, f"first tiled loss {losses[0]} vs stream {first_loss}")
+        dts = np.diff([0.0] + [h["time_s"] for h in hist]) * 1e3
+        log(f"  losses {', '.join(f'{x:.5f}' for x in losses)} (first vs phase 5b's "
+            f"{first_loss:.5f}: rel {rel:.2e}); alive {', '.join(map(str, n_gs))}; n_isect "
+            f"{', '.join(str(int(h['n_isect'])) for h in hist)} (no overflow; exp_cap "
+            f"{trainer.caps.exp_cap} after the refine, capacity {trainer.capacity})")
+        log(f"  step times (host clock, each ends reading the loss) "
+            f"{', '.join(f'{x:.1f}' for x in dts)} ms; whole run {train_s:.1f} s | {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
+def synthetic_phase(dev, card):
+    """Phase 5d (see the module docstring)."""
+    import torch
+    from splat_one_tpu_torch.core.sh import rgb_to_sh
+    from splat_one_tpu_torch.core.transforms import invert_se3
+    from splat_one_tpu_torch.data.synthetic import make_synthetic_scene
+    from splat_one_tpu_torch.ops.intersect import IsectCaps
+    from splat_one_tpu_torch.render.rasterization import rasterization
+    from splat_one_tpu_torch.utils import cuda_build
+
+    log(f"phase 5d: make_synthetic_scene on the card | {card}")
+    for label, kw in (("defaults", {}), ("surface", dict(surface=True)),
+                      ("spherical", dict(camera_model="spherical"))):
+        cuda_build.launch_counts.clear()
+        t0 = time.perf_counter()
+        scene, gt = make_synthetic_scene(**kw)
+        secs = time.perf_counter() - t0
+        counts = dict(cuda_build.launch_counts)
+        M, H, W = scene.images.shape[:3]
+        require(counts.get("tile_fwd", 0) == M, f"{label}: launches {counts}")
+        t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        g = [t(gt[k]) for k in ("means", "quats", "scales", "opacities")]
+        sh0 = rgb_to_sh(t(gt["rgb"]))[:, None, :]
+        viewmats, Ks = invert_se3(t(scene.camtoworlds)), t(scene.Ks)
+        caps = IsectCaps.choose(g[0].shape[0], 1, (-(-W // 16)) * (-(-H // 16)))
+        err_t = err_s = 0.0
+        n_isect = []
+        with torch.no_grad():
+            for i in range(M):
+                args = (*g, sh0, viewmats[i:i + 1], Ks[i:i + 1], W, H)
+                kw_r = dict(sh_degree=0, camera_model=scene.camera_model)
+                r_t, _, info = rasterization(*args, caps=caps, **kw_r)
+                r_s, _, _ = rasterization(*args, impl="stream", **kw_r)
+                require(not bool(info["overflow"]), f"{label}: view {i} overflows its caps")
+                n_isect.append(int(info["n_isect"]))
+                img = torch.as_tensor(scene.images[i], device=dev)
+                err_t = max(err_t, float((torch.clamp(r_t[0], 0, 1) - img).abs().max()))
+                err_s = max(err_s, float((torch.clamp(r_s[0], 0, 1) - img).abs().max()))
+        require(err_t <= 1e-6 and err_s <= ORACLE_ATOL,
+                f"{label}: GT vs re-render {err_t:.2e}, vs stream {err_s:.2e}")
+        require(scene.images.max() > 0.2, f"{label}: empty GT")
+        log(f"  {label} ({M} views {W}x{H}, {g[0].shape[0]} gaussians, {secs:.1f} s): "
+            f"n_isect {min(n_isect)}-{max(n_isect)} of exp_cap {caps.exp_cap}, no overflow; "
+            f"GT vs the stream render max abs diff {err_s:.2e} (bar {ORACLE_ATOL}); "
+            f"launches {counts}")
 
 
 # ---------------------------------------------------------------- main
@@ -811,7 +1440,8 @@ def main():
         "100k 640x480": bench_scene(100_000, 640, 480, 500.0, -5.5, -4.0, seed=1),
     }
     # kernel vs plain max abs err, over every comparison of this run
-    max_err = {"stream_fwd": 0.0, "stream_bwd": 0.0, "seg_reduce": 0.0}
+    max_err = {k: 0.0 for k in ("stream_fwd", "stream_bwd", "seg_reduce", "tile_fwd",
+                                "tile_bwd", "seg_broadcast")}
     for i, (name, sc) in enumerate(scenes.items()):
         cfg, st, packed, isect = stream_inputs(sc, dev)
         e, out_k, _ = compare_fwd(name, cfg, st, packed)
@@ -825,25 +1455,28 @@ def main():
         max_err["seg_reduce"] = max(max_err["seg_reduce"], e_r)
         torch.cuda.synchronize()
 
+    tiled_kernel_checks(scenes, dev, max_err)
+
     osc = oracle_scene()
     t = lambda x: torch.as_tensor(x, device=dev)
     args = [t(osc[k]) for k in ("means", "quats", "scales", "opac", "sh",
                                 "viewmats", "Ks")]
-    render, alpha, info = rasterization(*args, 64, 64, sh_degree=1,
-                                        render_mode="RGB+D")
     proj = project_gaussians(*args[:4], args[5], args[6], 64, 64,
                              sh_coeffs=args[4], sh_degree=1)
     rgb_o, a_o, d_o = composite_reference(proj, 64, 64)
-    torch.cuda.synchronize()
-    e_rgb = float((render[..., :3] - rgb_o).abs().max())
-    e_a = float((alpha - a_o).abs().max())
-    e_d = float((render[..., 3:] - d_o).abs().max())
-    log(f"  oracle 64x64 (300 gaussians): rgb {e_rgb:.2e} alpha {e_a:.2e} "
-        f"depth {e_d:.2e} (atol {ORACLE_ATOL})")
-    require(not bool(info["overflow"]), "oracle scene overflow")
-    require(max(e_rgb, e_a) <= ORACLE_ATOL, "kernel path vs oracle (rgb/alpha)")
-    require(e_d <= 5 * ORACLE_ATOL, "kernel path vs oracle (depth)")
-    oracle_grad_check(dev)
+    for impl in ("stream", "tiled"):
+        render, alpha, info = rasterization(*args, 64, 64, sh_degree=1,
+                                            render_mode="RGB+D", impl=impl)
+        torch.cuda.synchronize()
+        e_rgb = float((render[..., :3] - rgb_o).abs().max())
+        e_a = float((alpha - a_o).abs().max())
+        e_d = float((render[..., 3:] - d_o).abs().max())
+        log(f"  oracle 64x64 (300 gaussians), {impl}: rgb {e_rgb:.2e} alpha {e_a:.2e} "
+            f"depth {e_d:.2e} (atol {ORACLE_ATOL})")
+        require(not bool(info["overflow"]), "oracle scene overflow")
+        require(max(e_rgb, e_a) <= ORACLE_ATOL, f"{impl} kernel path vs oracle (rgb/alpha)")
+        require(e_d <= 5 * ORACLE_ATOL, f"{impl} kernel path vs oracle (depth)")
+        oracle_grad_check(dev, impl)
 
     # phase 4: serving at full width
     log(f"phase 4: serving {N_SERVE} gaussians, SH {SH_SERVE}, "
@@ -978,10 +1611,19 @@ def main():
     }
     del params, alive, render_fn, outputs, proj, isect, packed, out_k
     torch.cuda.empty_cache()
+    tile_fwd_row = tiled_render_phase(dev, card, sc, max_err)
+    torch.cuda.empty_cache()
 
     rows = training_phase(dev, card, sc, max_err)
     kernels = [dict(fwd_row, launches=rows["launches"].get("stream_fwd", 0),
-                    max_abs_err=max_err["stream_fwd"])] + rows["kernels"]
+                    max_abs_err=max_err["stream_fwd"])] + rows["kernels"] + [
+        dict(tile_fwd_row, launches=rows["tiled_launches"].get("tile_fwd", 0),
+             max_abs_err=max_err["tile_fwd"]),
+        dict(rows["tile_bwd"], max_abs_err=max_err["tile_bwd"]),
+        dict(rows["seg_broadcast"], max_abs_err=max_err["seg_broadcast"]),
+    ]
+    for row in kernels:
+        require(row["launches"] > 0, f"{row['name']} was not launched on its path")
 
     # phase 6: the kernels line, the card line, the result line
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,7 +5,8 @@ into 32x32 px supertiles (2x2 tiles of 16 px); the compositing kernels
 stream each supertile's depth-sorted slot range once and gate every
 slot per 16 px tile. Pipeline:
   1. per-(camera, gaussian) supertile bbox spans -> counts -> offsets,
-  2. expansion to slots (ops.seg_broadcast) and the slots' supertile ids,
+  2. expansion to slots (ops.seg_broadcast: the default path, or the
+     kernel under ``SPLAT_SEG_BROADCAST``) and the slots' supertile ids,
   3. one stable sort by (supertile, depth), ties in expansion order,
   4. searchsorted for per-supertile slot ranges.
 Spherical cameras wrap in azimuth: unwrapped spans, ``mod sw`` at
@@ -25,7 +26,8 @@ import torch
 
 from splat_one_tpu_torch.ops import seg_reduce
 from splat_one_tpu_torch.ops.projection import Projected, conic_ellipse_radii
-from splat_one_tpu_torch.ops.seg_broadcast import expand_meta_streamed
+from splat_one_tpu_torch.ops.seg_broadcast import (SLAB, expand_meta_streamed,
+                                                   required_slab)
 
 # Supertile = SS x SS tiles of `tile_size` pixels.
 SS = 2
@@ -75,6 +77,10 @@ class StreamCaps:
     n_supertiles: int  # C * SH * SW
     chunk: int = 128  # kernel chunk G
     ss: int = SS  # tiles per supertile side
+    # parent-window width of the seg_broadcast kernel path (its per-chunk
+    # search work scales with it); sized from a warm-up build by
+    # ``observed_sb_slab``, as exp_cap by ``choose_observed``
+    sb_slab: int = SLAB
 
     @property
     def pad_cap(self) -> int:
@@ -102,13 +108,14 @@ class StreamCaps:
 
     @staticmethod
     def choose_observed(n_isect: int, n_supertiles: int, chunk: int = 128,
-                        slack: float = 1.08, ss: int = SS):
+                        slack: float = 1.08, ss: int = SS, sb_slab: int = SLAB):
         """Caps sized from a measured intersection count (a warm-up build
-        with generous caps, or the previous render's ``info["n_isect"]``)."""
+        with generous caps, or the previous render's ``info["n_isect"]``)
+        and, optionally, a measured ``observed_sb_slab``."""
         exp_cap = max(int(n_isect * slack), 1024)
         exp_cap = -(-exp_cap // chunk) * chunk
         return StreamCaps(exp_cap=exp_cap, n_supertiles=n_supertiles,
-                          chunk=chunk, ss=ss)
+                          chunk=chunk, ss=ss, sb_slab=sb_slab)
 
 
 class StreamIsect(NamedTuple):
@@ -212,6 +219,18 @@ def parent_spans(proj: Projected, width: int, height: int, tile_size: int,
     return sx0, span_x, sy0, span_y
 
 
+def observed_sb_slab(proj: Projected, width: int, height: int, tile_size: int,
+                     caps: StreamCaps, camera_model: str = "pinhole") -> int:
+    """The seg_broadcast window width this projection needs
+    (``seg_broadcast.required_slab``), for
+    ``StreamCaps.choose_observed(sb_slab=...)``."""
+    sx0, span_x, sy0, span_y = parent_spans(proj, width, height, tile_size,
+                                            caps.ss, camera_model)
+    counts = span_x * span_y
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
+    return required_slab(offsets, counts, caps.exp_cap)
+
+
 def build_stream_intersections(
     proj: Projected,
     width: int,
@@ -240,7 +259,8 @@ def build_stream_intersections(
     overflow = n_isect > EXP
 
     sx0_s, sy0_s, span_s, kA_s, off_s, depth_s, g_of_s = expand_meta_streamed(
-        sx0, sy0, span_p, kA, offsets, proj.depths.reshape(M0), EXP)
+        sx0, sy0, span_p, kA, offsets, proj.depths.reshape(M0), counts, EXP,
+        slab=caps.sb_slab)
     slot_ids = torch.arange(EXP, dtype=torch.int64, device=dev)
     slot_ok = slot_ids < torch.clamp(n_isect, max=EXP)
     local = slot_ids - off_s + kA_s

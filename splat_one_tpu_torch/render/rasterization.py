@@ -1,26 +1,33 @@
 """Public rasterization API: the port's ``rasterization()``.
 
-Counterpart of ``splat_one_tpu/render/rasterization.py`` with the stream
-backend: differentiable EWA projection (ops.projection, autograd) ->
-supertile-stream intersection build on the detached projection
-(ops.stream_isect) -> the compositing ``autograd.Function``
-(ops.stream_raster: forward and backward kernels, per-gaussian
-reduction) -> image assembly. Gradients reach means, quats, scales,
-opacities and colours, and the ``means2d_dummy`` / ``absgrad_dummy``
-hooks that densification reads.
+Counterpart of ``splat_one_tpu/render/rasterization.py``: differentiable
+EWA projection (ops.projection, autograd) -> intersection build on the
+detached projection -> the compositing ``autograd.Function`` (forward and
+backward kernels, per-gaussian reduction) -> image assembly. Two
+backends, as in the JAX package:
+  - ``impl="stream"`` (default): the supertile stream (ops.stream_isect,
+    ops.stream_raster);
+  - ``impl="tiled"``: the gen-1 per-tile lists (ops.intersect,
+    ops.tile_raster), the cross-check of the stream path.
+``impl=None`` takes "tiled" for ``IsectCaps`` and "stream" otherwise.
+Gradients reach means, quats, scales, opacities and colours, and the
+``means2d_dummy`` / ``absgrad_dummy`` hooks that densification reads.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
+from splat_one_tpu_torch.ops import intersect as isect_mod
 from splat_one_tpu_torch.ops import stream_isect as si_mod
-from splat_one_tpu_torch.ops import stream_raster
+from splat_one_tpu_torch.ops import stream_raster, tile_raster
+from splat_one_tpu_torch.ops.intersect import IsectCaps
 from splat_one_tpu_torch.ops.projection import Projected, project_gaussians
 from splat_one_tpu_torch.ops.stream_isect import StreamCaps
 from splat_one_tpu_torch.ops.stream_raster import StreamCfg
+from splat_one_tpu_torch.ops.tile_raster import RasterCfg
 
 
 def rasterization(
@@ -43,11 +50,11 @@ def rasterization(
     render_mode: str = "RGB",
     rasterize_mode: str = "classic",
     backgrounds: Optional[torch.Tensor] = None,  # [C, 3]
-    caps: Optional[StreamCaps] = None,
+    caps: Optional[Union[IsectCaps, StreamCaps]] = None,
     alive: Optional[torch.Tensor] = None,  # [N] bool
     means2d_dummy: Optional[torch.Tensor] = None,  # [C, N, 2] grad hook
     absgrad_dummy: Optional[torch.Tensor] = None,  # [C, N, 2] absgrad hook
-    impl: Optional[str] = None,
+    impl: Optional[str] = None,  # "stream" | "tiled"; inferred from caps
     proj_transform=None,
     st_shard=None,
 ):
@@ -66,11 +73,10 @@ def rasterization(
         raise ValueError(f"bad render_mode {render_mode!r}")
     if rasterize_mode not in ("classic", "antialiased"):
         raise ValueError(f"bad rasterize_mode {rasterize_mode!r}")
-    if impl not in (None, "stream") or (
-            caps is not None and not isinstance(caps, StreamCaps)):
-        raise NotImplementedError(
-            "impl='tiled' is not ported yet: it comes with the gen-1 "
-            "cross-check rasterizer slice (ops/intersect.py, ops/tile_raster.py)")
+    if impl is None:
+        impl = "tiled" if isinstance(caps, IsectCaps) else "stream"
+    if impl not in ("stream", "tiled"):
+        raise ValueError(f"bad impl {impl!r}")
     if st_shard is not None:
         raise NotImplementedError("st_shard (multi-GPU supertile slabs) is "
                                   "not ported yet: it comes with the "
@@ -95,18 +101,33 @@ def rasterization(
         proj = proj._replace(means2d=proj.means2d + means2d_dummy)
     # the layout is integer bookkeeping: built from a detached projection
     proj_sg = Projected(*(x.detach() for x in proj))
-    if caps is None:
-        _, _, sgw, sgh = si_mod.supertile_grid(width, height, tile_size)
-        caps = StreamCaps.choose(N, C, C * sgw * sgh)
-    cfg = StreamCfg.from_caps(caps, width, height, tile_size, C, N,
-                              wrap_x=(camera_model == "spherical"),
-                              absgrad=(absgrad_dummy is not None))
-    isect = si_mod.build_stream_intersections(
-        proj_sg, width, height, tile_size, caps, camera_model=camera_model)
-    out = stream_raster.composite_stream(
-        cfg, proj.means2d, proj.conics, proj.colors, proj.opacities,
-        proj.depths, proj_sg.radii, isect, abs_dummy=absgrad_dummy)
-    rgb, alpha, depth = stream_raster.stream_to_image(cfg, out)
+    wrap = camera_model == "spherical"
+    if impl == "stream":
+        if not isinstance(caps, StreamCaps):
+            _, _, sgw, sgh = si_mod.supertile_grid(width, height, tile_size)
+            caps = StreamCaps.choose(N, C, C * sgw * sgh)
+        cfg = StreamCfg.from_caps(caps, width, height, tile_size, C, N,
+                                  wrap_x=wrap, absgrad=(absgrad_dummy is not None))
+        isect = si_mod.build_stream_intersections(
+            proj_sg, width, height, tile_size, caps, camera_model=camera_model)
+        out = stream_raster.composite_stream(
+            cfg, proj.means2d, proj.conics, proj.colors, proj.opacities,
+            proj.depths, proj_sg.radii, isect, abs_dummy=absgrad_dummy)
+        rgb, alpha, depth = stream_raster.stream_to_image(cfg, out)
+    else:
+        if not isinstance(caps, IsectCaps):
+            tw = -(-width // tile_size)
+            th = -(-height // tile_size)
+            caps = IsectCaps.choose(N, C, tw * th)
+        cfg = RasterCfg(width=width, height=height, tile_size=tile_size,
+                        num_cameras=C, num_gaussians=N, chunk=caps.chunk,
+                        align_cap=caps.align_cap, wrap_x=wrap)
+        isect = isect_mod.build_intersections(
+            proj_sg, width, height, tile_size, caps, camera_model=camera_model)
+        out = tile_raster.composite_tiles(
+            cfg, proj.means2d, proj.conics, proj.colors, proj.opacities,
+            proj.depths, isect, abs_dummy=absgrad_dummy)
+        rgb, alpha, depth = tile_raster.tiles_to_image(cfg, out)
 
     if backgrounds is not None:
         rgb = rgb + (1.0 - alpha) * backgrounds[:, None, None, :]

@@ -2,9 +2,8 @@
 field for field (the reference trainer's ``Config`` surface plus the
 capacity knobs). ``adjust_steps`` scales every step count by
 ``steps_scaler``. Fields of modules the port has not ported yet
-(``pose_opt``, ``app_opt``, ``use_bilateral_grid``, ``raster_impl="tiled"``,
-the MCMC strategy) are kept so configs carry over; the Trainer refuses
-them.
+(``pose_opt``, ``app_opt``, ``use_bilateral_grid``, the MCMC strategy)
+are kept so configs carry over; the Trainer refuses them.
 """
 
 from __future__ import annotations

@@ -15,10 +15,12 @@ Checkpoints use the JAX Trainer's npz keys (``params['means']``,
 ``strat_grad2d``, ``strat_count``), so a JAX checkpoint resumes here and
 ``app.viewer.load_checkpoint_params`` reads this Trainer's.
 
-Runs on CUDA unless ``device="cpu"``. Not ported yet, and refused:
-pose optimisation, the appearance model, the bilateral grid, the tiled
-rasterizer, the MCMC strategy and mesh (multi-GPU) training; LPIPS in
-``eval`` is reported as None, as the JAX Trainer does without weights.
+Runs on CUDA unless ``device="cpu"``; ``Config.raster_impl`` picks the
+stream rasterizer (default) or the gen-1 tiled one, through the type of
+the intersection caps. Not ported yet, and refused: pose optimisation,
+the appearance model, the bilateral grid, the MCMC strategy and mesh
+(multi-GPU) training; LPIPS in ``eval`` is reported as None, as the JAX
+Trainer does without weights.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 from splat_one_tpu_torch.core import gaussians as G
 from splat_one_tpu_torch.core.sh import num_sh_bases
 from splat_one_tpu_torch.core.transforms import invert_se3
+from splat_one_tpu_torch.ops.intersect import IsectCaps
 from splat_one_tpu_torch.ops.ssim import ssim as ssim_fn
 from splat_one_tpu_torch.ops.stream_isect import StreamCaps, supertile_grid
 from splat_one_tpu_torch.render.rasterization import rasterization
@@ -107,10 +110,8 @@ class Trainer:
             if getattr(cfg, flag):
                 raise NotImplementedError(
                     f"{flag}: {what} is not ported yet; it follows Slice C")
-        if cfg.raster_impl != "stream":
-            raise NotImplementedError(
-                "raster_impl='tiled' is not ported yet: it comes with the "
-                "gen-1 cross-check rasterizer slice (Slice C)")
+        if cfg.raster_impl not in ("stream", "tiled"):
+            raise ValueError(f"bad raster_impl {cfg.raster_impl!r}")
         if isinstance(cfg.strategy, MCMCStrategyCfg):
             raise NotImplementedError(
                 "the MCMC strategy (mcmc_refine, mcmc_noise) is not ported "
@@ -149,7 +150,9 @@ class Trainer:
         self.state = TrainState(
             params=params, opt_state=opt.adam_init(params), alive=alive,
             strat=S.strategy_init(capacity, self.device), step=0)
-        self._isect_mult = cfg.avg_supertiles_per_gaussian
+        self._isect_mult = (cfg.avg_supertiles_per_gaussian
+                            if cfg.raster_impl == "stream"
+                            else cfg.avg_tiles_per_gaussian)
         self.caps = self._choose_caps(capacity)
         # every random draw of step s comes from this generator reseeded
         # with (seed, s), so a resumed run replays an uninterrupted one
@@ -161,10 +164,17 @@ class Trainer:
         self._build_steps()
 
     # ------------------------------------------------------------------
-    def _choose_caps(self, capacity: int) -> StreamCaps:
-        """Stream intersection capacities for ``capacity`` gaussians."""
-        _, _, sw, sh = supertile_grid(self.width, self.height, self.cfg.tile_size)
+    def _choose_caps(self, capacity: int):
+        """Intersection capacities for ``capacity`` gaussians: stream
+        supertile caps, or gen-1 per-tile caps when ``raster_impl`` is
+        "tiled" (``rasterization`` picks the backend from their type)."""
+        ts = self.cfg.tile_size
         B = self.cfg.batch_size
+        if self.cfg.raster_impl == "tiled":
+            n_tiles = (-(-self.width // ts)) * (-(-self.height // ts))
+            return IsectCaps.choose(capacity, B, n_tiles,
+                                    avg_tiles_per_gaussian=self._isect_mult)
+        _, _, sw, sh = supertile_grid(self.width, self.height, ts)
         return StreamCaps.choose(capacity, B, B * sw * sh,
                                  avg_supertiles_per_gaussian=self._isect_mult)
 

@@ -44,6 +44,13 @@ SIGNATURES = {
     "stream_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     # rows, bounds, out, m0, n_payload, stream
     "seg_reduce": [_P, _P, _P, _I, _I, _P],
+    # starts, packed, out, ct, tw, tiles_per_cam, wrap_x, width, inv_width, stream
+    "tile_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # starts, packed, fwd_out, gout, pgrad, ct, tw, tiles_per_cam, wrap_x,
+    # width, inv_width, stream
+    "tile_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # pbases, offs_pad, table, out, nb, mp, slab, stream
+    "seg_broadcast": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 launch_counts: collections.Counter = collections.Counter()

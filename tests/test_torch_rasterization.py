@@ -124,8 +124,7 @@ def test_rasterization_refuses_what_is_not_ported():
     args, kw = SCENES["pinhole"]()
     t = [torch.as_tensor(x) for x in args[:7]]
     w, h = args[7:]
-    for bad in (dict(impl="tiled"), dict(st_shard=("gauss", 2)),
-                dict(proj_transform=lambda p: p)):
+    for bad in (dict(st_shard=("gauss", 2)), dict(proj_transform=lambda p: p)):
         with pytest.raises(NotImplementedError):
             tras(*t, w, h, **bad)
     # inputs that require grad render (gradients: test_torch_grads.py)

@@ -103,6 +103,6 @@ def test_expand_meta_matches_xla_path():
         exp_cap, force_path="xla")
     out_t = tsb.expand_meta_streamed(
         *(torch.as_tensor(x).long() for x in (sx0, sy0, span, ka, offsets)),
-        torch.as_tensor(depth), exp_cap)
+        torch.as_tensor(depth), torch.as_tensor(counts).long(), exp_cap)
     for a, b in zip(out_t, out_j):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))

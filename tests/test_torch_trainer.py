@@ -1,8 +1,10 @@
 """Port parity: the single-device Trainer against the JAX Trainer.
 
-Both Trainers train on one JAX-made synthetic scene (400 GT gaussians,
-six 64x64 views, SfM-style init from 200 points, capacity 512, SH degree
-1 ramped at step 10), densification off, the same seeded batch order.
+Both Trainers train on one synthetic scene (400 GT gaussians, six 64x64
+views, SfM-style init from 200 points, capacity 512, SH degree 1 ramped
+at step 10), densification off, the same seeded batch order. The port's
+``make_synthetic_scene`` builds it; the JAX package's gives the same
+scene (images within 1e-5, every other field equal).
 
 - After step 1, every parameter within 5e-4 relative of its max (the
   gradient bar of the rasterizer paths). Quaternions are compared through
@@ -27,11 +29,13 @@ import numpy as np
 import pytest
 import torch
 
-from splat_one_tpu.data.synthetic import make_synthetic_scene
+from splat_one_tpu.data.synthetic import make_synthetic_scene as jmake_synthetic_scene
 from splat_one_tpu.train.config import Config as JConfig
 from splat_one_tpu.train.strategy import DefaultStrategyCfg as JDefault
+from splat_one_tpu.train.trainer import SceneData as JSceneData
 from splat_one_tpu.train.trainer import Trainer as JTrainer
 from splat_one_tpu_torch.app import viewer
+from splat_one_tpu_torch.data.synthetic import make_synthetic_scene
 from splat_one_tpu_torch.core.transforms import quat_to_rotmat
 from splat_one_tpu_torch.train.config import Config
 from splat_one_tpu_torch.train.strategy import DefaultStrategyCfg, MCMCStrategyCfg
@@ -56,8 +60,12 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def scene():
-    s, _ = make_synthetic_scene(n_gaussians=400, n_cameras=6, width=64,
-                                height=64, n_points=200)
+    kw = dict(n_gaussians=400, n_cameras=6, width=64, height=64, n_points=200)
+    s, _ = make_synthetic_scene(**kw, device="cpu")
+    sj, _ = jmake_synthetic_scene(**kw)
+    assert np.abs(s.images - sj.images).max() <= 1e-5
+    for a, b in zip(s[:2] + s[3:], sj[:2] + sj[3:]):
+        np.testing.assert_array_equal(a, b)
     return s
 
 
@@ -84,7 +92,7 @@ def _rel(a, b):
 
 def test_trainer_tracks_jax(scene, tmp_path):
     jt = JTrainer(JConfig(result_dir=str(tmp_path / "j"), strategy=JDefault(**OFF),
-                          **BASE), scene)
+                          **BASE), JSceneData(*scene))
     tt = Trainer(Config(result_dir=str(tmp_path / "t"), strategy=DefaultStrategyCfg(**OFF),
                         **BASE), SceneData(*scene), device="cpu")
     np.testing.assert_array_equal(tt.val_idx, jt.val_idx)
@@ -156,7 +164,7 @@ def test_trainer_densifies_and_checkpoints(scene, tmp_path):
 def test_trainer_refuses_what_is_not_ported(scene, tmp_path):
     ok = dict(result_dir=str(tmp_path), capacity=512, camera_model="pinhole")
     for bad in (dict(pose_opt=True), dict(app_opt=True), dict(use_bilateral_grid=True),
-                dict(raster_impl="tiled"), dict(strategy=MCMCStrategyCfg())):
+                dict(strategy=MCMCStrategyCfg())):
         with pytest.raises(NotImplementedError):
             Trainer(Config(**ok, **bad), SceneData(*scene), device="cpu")
     with pytest.raises(NotImplementedError):

@@ -101,7 +101,9 @@ def test_port_never_imports_jax():
             "splat_one_tpu_torch.train.strategy", "splat_one_tpu_torch.train.optimizers",
             "splat_one_tpu_torch.train.losses", "splat_one_tpu_torch.train.config",
             "splat_one_tpu_torch.utils.tensorboard",
-            "splat_one_tpu_torch.utils.device"} <= set(mods)
+            "splat_one_tpu_torch.utils.device", "splat_one_tpu_torch.ops.intersect",
+            "splat_one_tpu_torch.ops.tile_raster", "splat_one_tpu_torch.ops.seg_broadcast",
+            "splat_one_tpu_torch.data.synthetic"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
