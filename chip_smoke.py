@@ -8,15 +8,18 @@ Phases (any failure exits non-zero and prints no result line):
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile every kernel in splat_one_tpu_torch/csrc (nvcc,
      sm_90a, one process per source, all at once), timed, with ptxas
-     register and shared-memory use;
+     register, shared-memory and spill figures per kernel; the backward
+     kernels must not spill and must fit their blocks' register budget;
   3. kernels vs plain versions on the card: small pinhole, spherical,
-     edge-partial and empty scenes and a 100k-gaussian 640x480 scene,
-     for the stream forward, backward and segmented-reduce kernels and
-     (3b) the tiled forward and backward kernels on the same scenes'
-     per-tile layouts and the seg_broadcast kernel on their stream builds
-     and a ragged random problem; the stream and tiled paths' renders and
-     end-to-end gradients against the dense oracle and against each
-     other on small scenes;
+     edge-partial and empty scenes, a deep-stack scene (a supertile of 12
+     chunks whose tiles stop after 12, 1, 7 and 0 of them) and a
+     100k-gaussian 640x480 scene, for the stream forward, backward (with
+     and without absgrad) and segmented-reduce kernels and (3b) the tiled
+     forward and backward kernels on the same scenes' per-tile layouts and
+     the seg_broadcast kernel on their stream builds and a ragged random
+     problem; each backward kernel launched twice gives the same bits; the
+     stream and tiled paths' renders and end-to-end gradients against the
+     dense oracle and against each other on small scenes;
   4. serving at full width: the 1M-gaussian, SH degree 3, 1280x720
      scene of bench.py (seed 0) through params_from_numpy ->
      make_render_fn, three pinhole and one spherical request; launch
@@ -29,9 +32,9 @@ Phases (any failure exits non-zero and prints no result line):
      scene (loss sum(render) + sum(alpha), gradients into all five
      inputs): step time, Mpix/s, per-layer times, device trace, peak
      memory, launch counts, both backward kernels against their plain
-     versions at these inputs; (a-i) the same step through
-     impl="tiled", its gradients against the stream step's and the tiled
-     backward kernel at these inputs; (a-ii) the stream build under
+     versions at these inputs (stream_bwd with and without absgrad);
+     (a-i) the same step through impl="tiled", its gradients against the
+     stream step's and the tiled backward kernel at these inputs; (a-ii) the stream build under
      SPLAT_SEG_BROADCAST=cond with the observed window: the layout equal
      to the default build's, the seg_broadcast kernel launched with no
      fallback, its time beside the default expansion's; (b) the port's
@@ -49,6 +52,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -66,7 +70,8 @@ F32_OPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 OPS_PER_PAIR = 26  # forward f32 operations per evaluated (pixel, slot) pair, exp as one
 # backward f32 arithmetic per evaluated pair (exp as one); the per-slot sums
 # over pixels add one operation per reduced value and pair on top (10, or 12
-# with absgrad). The kernel's butterfly spends 5 adds per value: its own
+# with absgrad). The kernels' sums over pixels spend, per 64-pixel warp and
+# slot, 15 shuffles and up to 22 selects beside the adds: their own
 # overhead, not work the function needs, so not in the bound.
 OPS_PER_PAIR_BWD = 55
 N_SERVE, W_SERVE, H_SERVE, SH_SERVE = 1_000_000, 1280, 720, 3
@@ -74,6 +79,7 @@ N_GT, N_VIEWS, TRAIN_STEPS = 200_000, 8, 6
 TRAIN_CAPACITY = 1_048_576  # the Trainers' splat buffers (phases 5b, 5c)
 TILED_STEPS = 4  # phase 5c
 REL_RENDER, REL_GRAD = 1e-5, 5e-4  # stream vs tiled (tests/test_stream_raster.py)
+NO_SPILL = ("stream_bwd", "tile_bwd")  # kernels held to 0 B of register spill
 
 
 def log(*a):
@@ -91,6 +97,25 @@ def card_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_entries(text):
+    """[(kernel, registers, spill stores B, spill loads B, the rest of the
+    "Used ..." line)] for each entry function in nvcc's -Xptxas -v output."""
+    out, kern, spill = [], "?", (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"([a-z_]+_kernel)(ILb([01])E)?", m.group(1))
+            kern = (k.group(1) + {None: "", "0": "<false>", "1": "<true>"}[k.group(3)]
+                    if k else m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m:
+            out.append((kern, int(m.group(1)), *spill, m.group(2).strip(", ")))
+    return out
 
 
 # ---------------------------------------------------------------- scenes
@@ -127,6 +152,42 @@ def empty_scene():
                 viewmats=np.eye(4, dtype=np.float32)[None],
                 Ks=np.float32([[[60.0, 0, 16], [0, 60.0, 12], [0, 0, 1]]]),
                 w=32, h=24, camera_model="pinhole")
+
+
+def deep_stack_scene(seed=0):
+    """Long streams whose tiles stop at different chunks (also the scene of
+    the backward kernels' gpu tests, tests/test_torch_stream_raster.py).
+    96x32 px, one pinhole camera,
+    three supertiles. Supertile 0: tile 0 a deep stack (1,100 small
+    translucent gaussians over every depth, its right columns uncovered, so
+    it never terminates: 12 chunks), tile 1 40 gaussians in front of all
+    the others (chunk 0 only), tile 2 300 in the front of the depths, tile
+    3 none. Supertile 2: 600 wide near-opaque gaussians that saturate its
+    tiles after 2 of its 6 chunks; supertile 1 sees their tails. On the
+    tiled path tile 0 holds 9 chunks."""
+    rng = np.random.default_rng(seed)
+    f, w, h = 60.0, 96, 32
+    groups = [  # count, u range, v range (px), depth range, sigma (px), opacity
+        (1100, (3, 11), (3, 11), (3.0, 5.0), (0.6, 1.2), (0.1, 0.4)),
+        (40, (20, 28), (4, 12), (2.0, 2.5), (0.6, 1.2), (0.1, 0.4)),
+        (300, (4, 12), (20, 28), (3.0, 3.8), (0.6, 1.2), (0.1, 0.4)),
+        (600, (62, 98), (-2, 34), (3.0, 5.0), (3.0, 5.0), (0.8, 0.95)),
+    ]
+    means, scales, opac = [], [], []
+    for n, ur, vr, zr, sr, orng in groups:
+        u, v, z = rng.uniform(*ur, n), rng.uniform(*vr, n), rng.uniform(*zr, n)
+        means.append(np.stack([(u - w / 2) * z / f, (v - h / 2) * z / f, z], 1))
+        scales.append(np.repeat((rng.uniform(*sr, n) * z / f)[:, None], 3, 1))
+        opac.append(rng.uniform(*orng, n))
+    means = np.concatenate(means).astype(np.float32)
+    n = means.shape[0]
+    return dict(means=means, quats=np.tile(np.float32([1, 0, 0, 0]), (n, 1)),
+                scales=np.concatenate(scales).astype(np.float32),
+                opac=np.concatenate(opac).astype(np.float32),
+                colors=rng.uniform(size=(n, 3)).astype(np.float32),
+                viewmats=np.eye(4, dtype=np.float32)[None],
+                Ks=np.float32([[[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]]]),
+                w=w, h=h, camera_model="pinhole")
 
 
 def bench_scene(n, w, h, focal, scale_lo, scale_hi, seed=0):
@@ -222,12 +283,15 @@ def compare_tile_fwd(name, cfg, starts, packed):
 
 
 def compare_tile_bwd(name, cfg, starts, packed, out, gout):
-    """tile_bwd kernel vs its plain version -> (max abs err, kernel rows,
-    plain ms)."""
+    """tile_bwd kernel vs its plain version, and a second launch bit for
+    bit -> (max abs err, kernel rows, plain ms)."""
+    import torch
     from splat_one_tpu_torch.ops import intersect as itx
     from splat_one_tpu_torch.ops import tile_raster as tr
 
     pg_k = tr.tile_bwd(cfg, starts, packed, out, gout)
+    require(bool(torch.equal(pg_k, tr.tile_bwd(cfg, starts, packed, out, gout))),
+            f"{name}: two tile_bwd launches differ")
     pg_p, plain_ms = timed_once(lambda: tr.tile_bwd_plain(cfg, starts, packed, out, gout))
     require(not bool(pg_k[:, itx.N_GROWS:].any()), f"{name}: tile_bwd pad columns")
     return column_err(name, "tile_bwd", pg_k, pg_p), pg_k, plain_ms
@@ -354,6 +418,8 @@ def tiled_kernel_checks(scenes, dev, max_err):
     from splat_one_tpu_torch.ops import stream_isect as si
     from splat_one_tpu_torch.utils import cuda_build
 
+    from splat_one_tpu_torch.ops import tile_raster as tr
+
     log("phase 3b: tile_fwd, tile_bwd and seg_broadcast kernels vs plain versions")
     for i, (name, sc) in enumerate(scenes.items()):
         proj = project(sc, dev)
@@ -365,9 +431,10 @@ def tiled_kernel_checks(scenes, dev, max_err):
         e_b, pg_k, _ = compare_tile_bwd(name, cfg, starts, packed, out_k, gout)
         max_err["tile_fwd"] = max(max_err["tile_fwd"], e_f)
         max_err["tile_bwd"] = max(max_err["tile_bwd"], e_b)
-        log(f"  {name}: CT={cfg.ct}, n_isect {int(isect.n_isect)}; tile_fwd abs err "
-            f"{e_f:.3e}, n_chunks equal; tile_bwd abs err {e_b:.3e} over "
-            f"{int((pg_k.abs().amax(1) > 0).sum())} written rows")
+        log(f"  {name}: CT={cfg.ct}, n_isect {int(isect.n_isect)}, up to "
+            f"{int(out_k[:, tr.CH_NCHUNKS, 0].max())} chunks a tile; tile_fwd abs err {e_f:.3e}, "
+            f"n_chunks equal; tile_bwd abs err {e_b:.3e} over "
+            f"{int((pg_k.abs().amax(1) > 0).sum())} written rows, two launches equal")
         # seg_broadcast on the same scene's stream build
         C, N = proj.depths.shape
         _, _, sw, sh = si.supertile_grid(sc["w"], sc["h"], 16)
@@ -578,8 +645,9 @@ def column_err(name, label, got, want):
 
 def compare_bwd(name, cfg, st_starts, st_starts_al, packed, out, gout, m0):
     """Backward kernel vs plain version on the same inputs (key column
-    exactly, gradient columns within KERNEL_TOL), then the segmented
-    reduce kernel vs plain on the kernel's sorted rows. Returns (max abs
+    exactly, gradient columns within KERNEL_TOL; a second launch bit for
+    bit), then the segmented reduce kernel vs plain on the kernel's sorted
+    rows. Returns (max abs
     err bwd, max abs err reduce, kernel rows, sorted rows, bounds)."""
     import torch
     from splat_one_tpu_torch.ops import seg_reduce as sgr
@@ -587,6 +655,9 @@ def compare_bwd(name, cfg, st_starts, st_starts_al, packed, out, gout, m0):
     from splat_one_tpu_torch.ops import stream_raster as sr
 
     pg_k = sr.stream_bwd(cfg, st_starts, st_starts_al, packed, out, gout)
+    require(bool(torch.equal(pg_k, sr.stream_bwd(cfg, st_starts, st_starts_al, packed,
+                                                 out, gout))),
+            f"{name}: two stream_bwd launches differ")
     torch.cuda.synchronize()
     pg_p = sr.stream_bwd_plain(cfg, st_starts, st_starts_al, packed, out, gout)
     torch.cuda.synchronize()
@@ -601,7 +672,8 @@ def compare_bwd(name, cfg, st_starts, st_starts_al, packed, out, gout, m0):
     e_red = column_err(name, "seg_reduce", red_k.T, red_p.T)
     n_rows = int((pg_k[:, si.GCOL_KEY] > 0).sum())
     log(f"  {name}: stream_bwd (absgrad {cfg.absgrad}) abs err {e_bwd:.3e} over "
-        f"{n_rows} keyed rows, key column equal; seg_reduce abs err {e_red:.3e} "
+        f"{n_rows} keyed rows, key column equal, two launches equal; seg_reduce abs "
+        f"err {e_red:.3e} "
         f"over {m0} gaussians")
     return e_bwd, e_red, pg_k, rows, bounds
 
@@ -858,11 +930,16 @@ def training_phase(dev, card, sc, max_err):
 
     # both kernels at these inputs: vs plain, time, bound
     st, st_al = isect.st_starts, isect.st_starts_al
+    e_a, _, *_ = compare_bwd("training 1M pinhole, absgrad",
+                             dataclasses.replace(cfg, absgrad=True), st, st_al, packed,
+                             out, gout, N)
     e_b, e_r, pg_k, rows_k, bounds_k = compare_bwd(
         "training 1M pinhole", cfg, st, st_al, packed, out, gout, N)
-    max_err["stream_bwd"] = max(max_err["stream_bwd"], e_b)
+    max_err["stream_bwd"] = max(max_err["stream_bwd"], e_a, e_b)
     max_err["seg_reduce"] = max(max_err["seg_reduce"], e_r)
     bwd_ms = cuda_ms(lambda: sr.stream_bwd(cfg, st, st_al, packed, out, gout), 10)
+    bwd_abs_ms = cuda_ms(lambda: sr.stream_bwd(dataclasses.replace(cfg, absgrad=True), st,
+                                               st_al, packed, out, gout), 10)
     bwd_plain_ms = cuda_ms(lambda: sr.stream_bwd_plain(cfg, st, st_al, packed, out, gout), 1)
     red_ms = cuda_ms(lambda: sgr.segment_reduce_rows(rows_k, bounds_k, n_pay), 20)
     red_plain_ms = cuda_ms(lambda: sgr.segment_reduce_plain(rows_k, bounds_k, n_pay), 3)
@@ -922,7 +999,8 @@ def training_phase(dev, card, sc, max_err):
     # keyed rows' payload and the bounds read, the per-gaussian sums written
     red_bytes = n_keyed * n_pay * 4 + (N + 1) * 4 + n_pay * N * 4
     red_bound = red_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"  stream_bwd at 1M/720p: {bwd_ms:.4f} ms (CUDA events, 10 launches); plain "
+    log(f"  stream_bwd at 1M/720p: {bwd_ms:.4f} ms (CUDA events, 10 launches; with "
+        f"absgrad {bwd_abs_ms:.4f} ms); plain "
         f"version {bwd_plain_ms:.1f} ms; bound {bwd_bound:.4f} ms by {bwd_by} "
         f"({bwd_bytes / 1e6:.1f} MB over {n_chunks} chunks reached, {pairs / 1e6:.1f} M "
         f"pixel-slot pairs x {ops_per_pair} ops) | {card}")
@@ -1212,6 +1290,7 @@ def tiled_step_phase(dev, card, leaves, vm, Kt, grads_stream, max_err):
         f"replayed, {pairs / 1e6:.1f} M pixel-slot pairs x {ops_per_pair} ops, "
         f"{bwd_bytes / 1e6:.1f} MB); abs err vs plain {e_b:.3e}; the per-gaussian "
         f"reduction (row gather + seg_reduce + un-permute) {red_ms:.4f} ms | {card}")
+
     return dict(name="tile_bwd", route="cuda", source="splat_one_tpu_torch/csrc/tile_bwd.cu",
                 replaces="splat_one_tpu/ops/tile_raster.py:221", max_abs_err=None,
                 ms=bwd_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -1424,9 +1503,11 @@ def main():
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, entry in sorted(blog.items()):
         log(f"  {name}: nvcc {entry['seconds']:.1f} s")
-        for line in entry["ptxas"].splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                log(f"    {line.strip()}")
+        for kern, regs, stores, loads, rest in ptxas_entries(entry["ptxas"]):
+            log(f"    {kern}: {regs} registers, {stores} B spill stores, {loads} B spill "
+                f"loads; {rest}")
+            if name in NO_SPILL:
+                require(stores == 0 and loads == 0, f"{name}: {kern} spills")
     for name in cuda_build.SIGNATURES:
         cuda_build.library(name)
 
@@ -1437,6 +1518,7 @@ def main():
         "spherical": stream_scene(spherical=True),
         "edge-partial 40x24": stream_scene(n=200, c=1, w=40, h=24),
         "empty": empty_scene(),
+        "deep-stack 96x32": deep_stack_scene(),
         "100k 640x480": bench_scene(100_000, 640, 480, 500.0, -5.5, -4.0, seed=1),
     }
     # kernel vs plain max abs err, over every comparison of this run
@@ -1446,13 +1528,14 @@ def main():
         cfg, st, packed, isect = stream_inputs(sc, dev)
         e, out_k, _ = compare_fwd(name, cfg, st, packed)
         max_err["stream_fwd"] = max(max_err["stream_fwd"], e)
-        # both reduced widths: with absgrad (12 columns) on every other scene
-        cfg_b = dataclasses.replace(cfg, absgrad=(i % 2 == 0))
-        e_b, e_r, *_ = compare_bwd(name, cfg_b, st, isect.st_starts_al, packed, out_k,
-                                   seeded_gout(cfg, i, dev),
-                                   cfg.num_cameras * cfg.num_gaussians)
-        max_err["stream_bwd"] = max(max_err["stream_bwd"], e_b)
-        max_err["seg_reduce"] = max(max_err["seg_reduce"], e_r)
+        # both reduced widths: without and with absgrad (10 and 12 columns)
+        for absgrad in (False, True):
+            e_b, e_r, *_ = compare_bwd(name, dataclasses.replace(cfg, absgrad=absgrad), st,
+                                       isect.st_starts_al, packed, out_k,
+                                       seeded_gout(cfg, i, dev),
+                                       cfg.num_cameras * cfg.num_gaussians)
+            max_err["stream_bwd"] = max(max_err["stream_bwd"], e_b)
+            max_err["seg_reduce"] = max(max_err["seg_reduce"], e_r)
         torch.cuda.synchronize()
 
     tiled_kernel_checks(scenes, dev, max_err)

@@ -274,6 +274,18 @@ _CH4 = [0, 1, 2, 4]  # rgb and depth channels of fwd_out / gout
 _WARP = 32
 
 
+def warp_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the lane axis (-2, 32 lanes of a warp) in the backward
+    kernels' order: lane l + 16 onto lane l first, then + 8, 4, 2, 1 (the
+    pairings of a full xor butterfly; the kernels take it as a
+    reduce-scatter, ``csrc/bwd_common.cuh``). [..., 32, nr] -> [..., nr]."""
+    half = v.shape[-2] // 2
+    while half:
+        v = v[..., :half, :] + v[..., half:2 * half, :]
+        half //= 2
+    return v[..., 0, :]
+
+
 def stream_bwd_plain(cfg: StreamCfg, st_starts: torch.Tensor,
                      st_starts_al: torch.Tensor, packed: torch.Tensor,
                      fwd_out: torch.Tensor, gout: torch.Tensor) -> torch.Tensor:
@@ -283,7 +295,7 @@ def stream_bwd_plain(cfg: StreamCfg, st_starts: torch.Tensor,
     and clamp rules as ``csrc/stream_bwd.cu``, and the same arithmetic in
     the same order: a serial loop over the G slots of a chunk, vectorised
     over supertiles, tiles and pixels; each slot's sum over the 1,024
-    pixels of its supertile taken as the kernel takes it (a butterfly over
+    pixels of its supertile taken as the kernel takes it (``warp_sum`` over
     the 32 lanes of each warp, then the 32 warps added in order)."""
     G, NT, P, CS = cfg.chunk, cfg.nt, cfg.npix, cfg.cs
     dev = packed.device
@@ -361,11 +373,7 @@ def stream_bwd_plain(cfg: StreamCfg, st_starts: torch.Tensor,
                     vals += [torch.abs(ddx), torch.abs(ddy)]
                 # thread j * P + p is lane (j * P + p) % 32 of warp // 32
                 v = torch.stack(vals, dim=-1).reshape(S, NT * P // _WARP, _WARP, nr)
-                half = _WARP // 2
-                while half:
-                    v = v[:, :, :half] + v[:, :, half:2 * half]
-                    half //= 2
-                part[:, g] = v[:, :, 0]
+                part[:, g] = warp_sum(v)
                 tin = tin * one_m
             acc = part[:, :, 0]
             for wi in range(1, NT * P // _WARP):

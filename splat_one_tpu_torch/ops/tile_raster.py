@@ -32,7 +32,7 @@ import torch
 from splat_one_tpu_torch.ops import intersect as isect_mod
 from splat_one_tpu_torch.ops.intersect import NF, IsectData
 from splat_one_tpu_torch.ops.reference import ALPHA_MAX, ALPHA_MIN
-from splat_one_tpu_torch.ops.stream_raster import TERM_THRESH, _inv_width
+from splat_one_tpu_torch.ops.stream_raster import TERM_THRESH, _inv_width, warp_sum
 from splat_one_tpu_torch.utils import cuda_build
 
 OUT_CH = 8  # r, g, b, alpha, depth, n_chunks, pad, pad
@@ -198,7 +198,7 @@ def tile_bwd_plain(cfg: RasterCfg, starts: torch.Tensor, packed: torch.Tensor,
     (each tile up to its forward n_chunks), kill and clamp rules as
     ``csrc/tile_bwd.cu`` and the same arithmetic in the same order; each
     slot's sum over the 256 pixels of its tile is taken as the kernel
-    takes it (a butterfly over the 32 lanes of each warp, then the 8
+    takes it (``warp_sum`` over the 32 lanes of each warp, then the 8
     warps added in order)."""
     G, P, CT = cfg.chunk, cfg.npix, cfg.ct
     dev = packed.device
@@ -259,11 +259,7 @@ def tile_bwd_plain(cfg: RasterCfg, starts: torch.Tensor, packed: torch.Tensor,
                             torch.abs(ddx), torch.abs(ddy)]
                 # pixel p is lane p % 32 of warp p // 32
                 v = torch.stack(vals, dim=-1).reshape(S, nw, _WARP, nr)
-                half = _WARP // 2
-                while half:
-                    v = v[:, :, :half] + v[:, :, half:2 * half]
-                    half //= 2
-                part[:, g] = v[:, :, 0]
+                part[:, g] = warp_sum(v)
                 tin = tin * one_m
             acc = part[:, :, 0]
             for wi in range(1, nw):

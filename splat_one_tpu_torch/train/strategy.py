@@ -30,6 +30,7 @@ import torch
 
 from splat_one_tpu_torch.core.transforms import quat_to_rotmat
 from splat_one_tpu_torch.train.optimizers import AdamState, surgery_zero_moments
+from splat_one_tpu_torch.utils.device import resolve as resolve_device
 
 Params = Dict[str, torch.Tensor]
 
@@ -67,10 +68,13 @@ class StrategyState(NamedTuple):
     count: torch.Tensor  # [CAP] number of steps the gaussian was visible
 
 
-def strategy_init(capacity: int, device="cpu") -> StrategyState:
+def strategy_init(capacity: int, device="cuda") -> StrategyState:
+    """Zeroed statistics for ``capacity`` slots, on CUDA unless
+    ``device="cpu"`` (raises where CUDA is not available)."""
+    dev = resolve_device(device)
     return StrategyState(
-        grad2d=torch.zeros((capacity,), dtype=torch.float32, device=device),
-        count=torch.zeros((capacity,), dtype=torch.float32, device=device),
+        grad2d=torch.zeros((capacity,), dtype=torch.float32, device=dev),
+        count=torch.zeros((capacity,), dtype=torch.float32, device=dev),
     )
 
 

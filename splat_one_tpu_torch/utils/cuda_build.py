@@ -3,14 +3,16 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, in ``splat_one_tpu_torch/_build/``
 (git-ignored), at first use; the library is loaded with ``ctypes``. The
-file name carries a hash of the source and flags, so an edited source is
-rebuilt. ``launch_counts`` holds one count per kernel, raised by each
-wrapper where it launches its kernel.
+file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt.
+``launch_counts`` holds one count per kernel, raised by each wrapper where
+it launches its kernel.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -69,7 +71,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -100,20 +103,43 @@ def build(names=None) -> dict:
     return build_log
 
 
+def load(path, name: str) -> ctypes.CDLL:
+    """Load the shared library at ``path`` holding kernel ``name``'s
+    launcher and bind its C signature."""
+    lib = ctypes.CDLL(str(path))
+    fn = getattr(lib, name)
+    fn.argtypes = SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    lib.splat_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.splat_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(_target(name)))
-            fn = getattr(lib, name)
-            fn.argtypes = SIGNATURES[name]
-            fn.restype = ctypes.c_int
-            lib.splat_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.splat_cuda_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            lib = _libs[name] = load(_target(name), name)
     return lib
+
+
+@contextlib.contextmanager
+def swapped(name: str, lib: ctypes.CDLL):
+    """Within the block, kernel ``name``'s wrapper launches ``lib`` (another
+    build of the same launcher, from ``load``) in place of its own."""
+    with _lock:
+        saved = _libs.get(name)
+        _libs[name] = lib
+    try:
+        yield
+    finally:
+        with _lock:
+            if saved is None:
+                _libs.pop(name, None)
+            else:
+                _libs[name] = saved
 
 
 def check(lib: ctypes.CDLL, rc: int, name: str) -> None:

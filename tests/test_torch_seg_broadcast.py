@@ -166,8 +166,9 @@ def test_stream_layout_under_every_path(path, monkeypatch):
     from test_torch_stream_raster import _port_inputs, _scene
 
     kw, model = CASES["spherical"]
-    cfg, isect, _ = _port_inputs(kw, model, "cpu")
-    means, quats, scales, opac, colors, viewmats, Ks, w, h = _scene(**kw)
+    scene = _scene(**kw)
+    cfg, isect, _ = _port_inputs(scene, model, "cpu")
+    means, quats, scales, opac, colors, viewmats, Ks, w, h = scene
     proj = tp.project_gaussians(*map(torch.as_tensor, (means, quats, scales, opac,
                                                        viewmats, Ks)),
                                 w, h, colors=torch.as_tensor(colors), camera_model=model)

@@ -27,7 +27,7 @@ from splat_one_tpu_torch.ops import stream_isect as tsi
 from splat_one_tpu_torch.ops import stream_raster as tsr
 from splat_one_tpu_torch.utils import cuda_build
 
-from test_torch_stream_raster import CASES, _inputs, _port_inputs
+from test_torch_stream_raster import CASES, GPU_CASES, _inputs, _port_inputs
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -142,12 +142,13 @@ def _gpu():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("absgrad", [False, True])
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(GPU_CASES))
 def test_cuda_backward_matches_plain(case, absgrad):
     """Run on the card with ``python -m pytest tests/test_torch_stream_bwd.py
     -m gpu --noconftest``."""
     _gpu()
-    cfg, isect, packed = _port_inputs(*CASES[case], "cuda")
+    scene, model = GPU_CASES[case]
+    cfg, isect, packed = _port_inputs(scene(), model, "cuda")
     cfg = dataclasses.replace(cfg, absgrad=absgrad)
     st = isect.st_starts
     out = tsr.stream_fwd(cfg, st, packed)
@@ -155,6 +156,8 @@ def test_cuda_backward_matches_plain(case, absgrad):
     n0 = cuda_build.launch_counts["stream_bwd"]
     pg_k = tsr.stream_bwd(cfg, st, isect.st_starts_al, packed, out, gout)
     assert cuda_build.launch_counts["stream_bwd"] == n0 + 1
+    # a second launch on the same inputs gives the same bits
+    assert torch.equal(pg_k, tsr.stream_bwd(cfg, st, isect.st_starts_al, packed, out, gout))
     pg_p = tsr.stream_bwd_plain(cfg, st, isect.st_starts_al, packed, out, gout)
     torch.cuda.synchronize()
     assert torch.equal(pg_k[:, tsi.GCOL_KEY:], pg_p[:, tsi.GCOL_KEY:])

@@ -9,10 +9,13 @@ port serially), n_chunks exactly equal. The CUDA kernel is held against
 the plain version by the ``gpu`` test, which needs a card.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import deep_stack_scene
 from splat_one_tpu_torch.ops import projection as tp
 from splat_one_tpu_torch.ops import stream_isect as tsi
 from splat_one_tpu_torch.ops import stream_raster as tsr
@@ -40,11 +43,22 @@ def _scene(n=600, c=2, seed=0, w=64, h=48, spherical=False):
     return means, quats, scales, opac, colors, viewmats, Ks, w, h
 
 
+def _deep_stack_scene():
+    """chip_smoke.py::deep_stack_scene, as ``_scene``'s tuple."""
+    sc = deep_stack_scene()
+    return tuple(sc[k] for k in ("means", "quats", "scales", "opac", "colors", "viewmats",
+                                 "Ks", "w", "h"))
+
+
 CASES = {
     "pinhole": (dict(), "pinhole"),
     "spherical": (dict(spherical=True), "spherical"),
     "edge-partial": (dict(n=200, c=1, w=40, h=24), "pinhole"),
 }
+# the gpu tests of the backward kernels: (a function making the scene,
+# camera model) for each of CASES and the deep-stack scene
+GPU_CASES = {k: (functools.partial(_scene, **kw), m) for k, (kw, m) in CASES.items()}
+GPU_CASES["deep-stack"] = (_deep_stack_scene, "pinhole")
 
 
 def _inputs(kw, model):
@@ -75,9 +89,10 @@ def _inputs(kw, model):
     return cfg_j, cfg_t, ij, packed, jsr
 
 
-def _port_inputs(kw, model, device):
-    """The port's own stream layout + packed table for a scene."""
-    means, quats, scales, opac, colors, viewmats, Ks, w, h = _scene(**kw)
+def _port_inputs(scene, model, device):
+    """The port's own stream layout + packed table for a scene (``_scene``'s
+    tuple)."""
+    means, quats, scales, opac, colors, viewmats, Ks, w, h = scene
     t = lambda x: torch.as_tensor(x, device=device)
     proj = tp.project_gaussians(*map(t, (means, quats, scales, opac, viewmats, Ks)),
                                 w, h, colors=t(colors), camera_model=model)
@@ -133,6 +148,39 @@ def test_plain_forward_early_termination():
     assert torch.allclose(out[:, :, 3], torch.ones(1), atol=1e-5)
 
 
+def test_deep_stack_scene_layout():
+    """The deep-stack scene has what the backward kernels' gpu tests need:
+    a supertile of 12 chunks whose tiles stop after 12, 1, 7 and 0 of them,
+    a supertile that saturates before its last chunk, and a tile of 9
+    chunks on the tiled path."""
+    from splat_one_tpu_torch.ops import intersect as tis
+    from splat_one_tpu_torch.ops import tile_raster as ttr
+
+    scene = _deep_stack_scene()
+    cfg, isect, packed = _port_inputs(scene, "pinhole", "cpu")
+    assert not bool(isect.overflow)
+    starts = isect.st_starts.long()
+    chunks = (starts[1:] - (starts[:-1] // 128) * 128 + 127) // 128
+    out = tsr.stream_fwd(cfg, isect.st_starts, packed)
+    nch = out[:, :, tsr.CH_NCHUNKS, 0]
+    assert chunks.tolist() == [12, 3, 6]
+    assert nch[0].tolist() == [12.0, 1.0, 7.0, 0.0]
+    assert nch[2].max() < chunks[2]
+    means, quats, scales, opac, colors, viewmats, Ks, w, h = scene
+    t = torch.as_tensor
+    proj = tp.project_gaussians(*map(t, (means, quats, scales, opac, viewmats, Ks)),
+                                w, h, colors=t(colors))
+    caps = tis.IsectCaps.choose(proj.depths.shape[1], 1, 12)
+    it = tis.build_intersections(proj, w, h, 16, caps)
+    cfg_t = ttr.RasterCfg(width=w, height=h, tile_size=16, num_cameras=1,
+                          num_gaussians=proj.depths.shape[1], chunk=128,
+                          align_cap=caps.align_cap)
+    pk = tis.pack_fields(proj.means2d, proj.conics, proj.colors, proj.opacities,
+                         proj.depths, it)
+    out_t = ttr.tile_fwd(cfg_t, it.tile_starts, pk)
+    assert out_t[:, ttr.CH_NCHUNKS, 0].max() == 9
+
+
 def test_stream_fwd_rejects_other_devices():
     cfg = tsr.StreamCfg(width=32, height=32, tile_size=16, num_cameras=1,
                         num_gaussians=1, chunk=128, exp_cap=128, n_supertiles=1)
@@ -151,7 +199,8 @@ def test_cuda_kernel_matches_plain(case):
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, isect, packed = _port_inputs(*CASES[case], "cuda")
+    kw, model = CASES[case]
+    cfg, isect, packed = _port_inputs(_scene(**kw), model, "cuda")
     st = isect.st_starts
     n0 = cuda_build.launch_counts["stream_fwd"]
     out_k = tsr.stream_fwd(cfg, st, packed)

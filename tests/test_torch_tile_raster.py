@@ -27,7 +27,7 @@ from splat_one_tpu_torch.ops import projection as tp
 from splat_one_tpu_torch.ops import tile_raster as ttr
 from splat_one_tpu_torch.utils import cuda_build
 
-from test_torch_stream_raster import CASES, _scene
+from test_torch_stream_raster import CASES, GPU_CASES, _scene
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -67,9 +67,10 @@ def _inputs(kw, model):
     return jtr.RasterCfg(**kw_cfg), ttr.RasterCfg(**kw_cfg), ij, packed, pj, jtr
 
 
-def _port_inputs(kw, model, device):
-    """The port's own per-tile layout + packed table for a scene."""
-    means, quats, scales, opac, colors, viewmats, Ks, w, h = _scene(**kw)
+def _port_inputs(scene, model, device):
+    """The port's own per-tile layout + packed table for a scene (``_scene``'s
+    tuple)."""
+    means, quats, scales, opac, colors, viewmats, Ks, w, h = scene
     t = lambda x: torch.as_tensor(x, device=device)
     proj = tp.project_gaussians(*map(t, (means, quats, scales, opac, viewmats, Ks)),
                                 w, h, colors=t(colors), camera_model=model)
@@ -202,10 +203,11 @@ def _gpu():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(GPU_CASES))
 def test_cuda_tile_kernels_match_plain(case):
     _gpu()
-    cfg, isect, packed = _port_inputs(*CASES[case], "cuda")
+    scene, model = GPU_CASES[case]
+    cfg, isect, packed = _port_inputs(scene(), model, "cuda")
     st = isect.tile_starts
     n0 = dict(cuda_build.launch_counts)
     out_k = ttr.tile_fwd(cfg, st, packed)
@@ -215,9 +217,11 @@ def test_cuda_tile_kernels_match_plain(case):
     assert torch.equal(out_k[:, ttr.CH_NCHUNKS], out_p[:, ttr.CH_NCHUNKS])
     gout = torch.as_tensor(_gout(cfg, 5), device="cuda")
     pg_k = ttr.tile_bwd(cfg, st, packed, out_k, gout)
+    assert cuda_build.launch_counts["tile_bwd"] == n0.get("tile_bwd", 0) + 1
+    # a second launch on the same inputs gives the same bits
+    assert torch.equal(pg_k, ttr.tile_bwd(cfg, st, packed, out_k, gout))
     pg_p = ttr.tile_bwd_plain(cfg, st, packed, out_k, gout)
     torch.cuda.synchronize()
     assert cuda_build.launch_counts["tile_fwd"] == n0.get("tile_fwd", 0) + 1
-    assert cuda_build.launch_counts["tile_bwd"] == n0.get("tile_bwd", 0) + 1
     err = (pg_k - pg_p).abs().max(0).values
     assert (err <= 1e-5 * torch.clamp(pg_p.abs().max(0).values, min=1.0)).all(), err

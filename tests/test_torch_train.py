@@ -168,11 +168,24 @@ def test_strategy_update():
     rng = np.random.default_rng(5)
     g = rng.normal(scale=1e-3, size=(2, 30, 2)).astype(np.float32)
     radii = rng.uniform(-2, 5, (2, 30)).astype(np.float32).clip(0)
-    st_t = ts.strategy_update(ts.strategy_init(30), torch.as_tensor(g),
+    st_t = ts.strategy_update(ts.strategy_init(30, device="cpu"), torch.as_tensor(g),
                               torch.as_tensor(radii), 64, 48)
     st_j = js.strategy_update(js.strategy_init(30), jnp.asarray(g), jnp.asarray(radii), 64, 48)
     _close(st_t.grad2d, st_j.grad2d, 1e-6)
     np.testing.assert_array_equal(st_t.count.numpy(), np.asarray(st_j.count))
+
+
+def test_strategy_init_device():
+    """The port's device rule: CUDA unless device="cpu", and no silent fall
+    back to the CPU where there is no card."""
+    st = ts.strategy_init(8, device="cpu")
+    for x in st:
+        assert x.device.type == "cpu" and x.shape == (8,) and not x.any()
+    if torch.cuda.is_available():
+        assert ts.strategy_init(8).grad2d.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ts.strategy_init(8)
 
 
 def _refine_state(cap=64, n_alive=56, seed=6):
