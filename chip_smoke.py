@@ -8,26 +8,33 @@ Phases (any failure exits non-zero and prints no result line):
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile every kernel in splat_one_tpu_torch/csrc (nvcc,
      sm_90a, one process per source, all at once), timed, with ptxas
-     register, shared-memory and spill figures per kernel; the backward
-     kernels must not spill and must fit their blocks' register budget;
+     register, shared-memory and spill figures per kernel; the forward
+     and backward compositing kernels must not spill;
   3. kernels vs plain versions on the card: small pinhole, spherical,
      edge-partial and empty scenes, a deep-stack scene (a supertile of 12
-     chunks whose tiles stop after 12, 1, 7 and 0 of them) and a
+     chunks whose tiles stop after 12, 1, 7 and 0 of them), a crowded
+     spherical scene (a supertile of 36 chunks across the azimuth seam,
+     its tiles stopping after 1, 16 and 28 of them and one never) and a
      100k-gaussian 640x480 scene, for the stream forward, backward (with
      and without absgrad) and segmented-reduce kernels and (3b) the tiled
      forward and backward kernels on the same scenes' per-tile layouts and
      the seg_broadcast kernel on their stream builds and a ragged random
-     problem; each backward kernel launched twice gives the same bits; the
+     problem; the forward kernels give their plain versions' bits (with
+     each input's blocks: the tiles that composite a chunk and the
+     longest tiles' chunks); each backward kernel launched twice gives the
+     same bits; the
      stream and tiled paths' renders and end-to-end gradients against the
      dense oracle and against each other on small scenes;
   4. serving at full width: the 1M-gaussian, SH degree 3, 1280x720
      scene of bench.py (seed 0) through params_from_numpy ->
      make_render_fn, three pinhole and one spherical request; launch
      counts, output checks, per-request and per-layer times, peak memory;
-     the forward kernel against its plain version at these inputs;
+     the forward kernel against its plain version at the pinhole front
+     and spherical inputs, its time and bound at both;
      (4b) the same scene through rasterization(impl="tiled"), pinhole
      front and spherical, against the stream render: layer split, the
-     tiled forward kernel vs its plain version, time, bound, memory;
+     tiled forward kernel vs its plain version, time and bound at both
+     poses, memory;
   5. training at full width: (a) bench.py's fwd+bwd step on the same
      scene (loss sum(render) + sum(alpha), gradients into all five
      inputs): step time, Mpix/s, per-layer times, device trace, peak
@@ -45,7 +52,8 @@ Phases (any failure exits non-zero and prints no result line):
      raster_impl="tiled", 4 steps and a refine, its first loss against
      (b)'s; (d) make_synthetic_scene on the card (its defaults, the
      surface rings, spherical), its tiled GT against the stream render;
-  6. the kernels line (JSON), then the card line, then the result line.
+  6. the kernels line (JSON; the forward rows also carry spherical_ms and
+     spherical_bound_ms), then the card line, then the result line.
 """
 
 import contextlib
@@ -79,7 +87,7 @@ N_GT, N_VIEWS, TRAIN_STEPS = 200_000, 8, 6
 TRAIN_CAPACITY = 1_048_576  # the Trainers' splat buffers (phases 5b, 5c)
 TILED_STEPS = 4  # phase 5c
 REL_RENDER, REL_GRAD = 1e-5, 5e-4  # stream vs tiled (tests/test_stream_raster.py)
-NO_SPILL = ("stream_bwd", "tile_bwd")  # kernels held to 0 B of register spill
+NO_SPILL = ("stream_fwd", "stream_bwd", "tile_fwd", "tile_bwd")  # held to 0 B of spill
 
 
 def log(*a):
@@ -190,6 +198,47 @@ def deep_stack_scene(seed=0):
                 w=w, h=h, camera_model="pinhole")
 
 
+def crowded_spherical_scene(seed=0):
+    """A spherical view of a compact cluster (also the scene of the forward
+    kernels' gpu tests, tests/test_torch_stream_raster.py): 128x64 px, the
+    identity camera, the cluster behind it (azimuth +-180 deg), so that it
+    straddles the azimuth seam (u = 0 = 128 px). Supertile 0 holds 36
+    chunks; its tile 0 saturates in chunk 0 (600 wide near-opaque
+    gaussians in front), tile 1 never terminates (2,400 small translucent
+    ones over every depth, its right columns uncovered), tiles 2 and 3
+    saturate after 16 and 28 chunks (opaque layers at the middle and the
+    back of the depths); 400 translucent ones cross the seam. On the tiled
+    path tile 0 stops after 1 of its 19 chunks and tile 1 runs all 27."""
+    rng = np.random.default_rng(seed)
+    w, h = 128, 64
+    groups = [  # count, u range, v range (px), radial depth range, sigma (px), opacity
+        (600, (-1, 17), (-1, 17), (2.0, 2.6), (2.0, 3.0), (0.8, 0.95)),
+        (2400, (17, 27), (2, 14), (2.0, 6.0), (0.5, 1.0), (0.05, 0.2)),
+        (600, (-1, 17), (15, 33), (3.6, 4.0), (2.0, 3.0), (0.8, 0.95)),
+        (600, (15, 33), (15, 33), (5.0, 5.4), (2.0, 3.0), (0.8, 0.95)),
+        (400, (-6, 6), (18, 30), (2.0, 6.0), (1.0, 2.5), (0.1, 0.3)),
+    ]
+    means, scales, opac = [], [], []
+    for n, ur, vr, rr, sr, orng in groups:
+        u, v, r = rng.uniform(*ur, n), rng.uniform(*vr, n), rng.uniform(*rr, n)
+        lon = (u / w - 0.5) * 2 * np.pi  # the port's equirectangular mapping
+        lat = (0.5 - v / h) * np.pi
+        means.append(np.stack([r * np.cos(lat) * np.sin(lon), -r * np.sin(lat),
+                               r * np.cos(lat) * np.cos(lon)], 1))
+        scales.append(np.repeat((rng.uniform(*sr, n) * 2 * np.pi / w * r)[:, None], 3, 1))
+        opac.append(rng.uniform(*orng, n))
+    means = np.concatenate(means).astype(np.float32)
+    n = means.shape[0]
+    f = w / (2 * np.pi)
+    return dict(means=means, quats=np.tile(np.float32([1, 0, 0, 0]), (n, 1)),
+                scales=np.concatenate(scales).astype(np.float32),
+                opac=np.concatenate(opac).astype(np.float32),
+                colors=rng.uniform(size=(n, 3)).astype(np.float32),
+                viewmats=np.eye(4, dtype=np.float32)[None],
+                Ks=np.float32([[[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]]]),
+                w=w, h=h, camera_model="spherical")
+
+
 def bench_scene(n, w, h, focal, scale_lo, scale_hi, seed=0):
     """bench.py's uniform scene: means in [-1, 1]^2 x [3, 5], SH degree 3."""
     rng = np.random.default_rng(seed)
@@ -267,8 +316,8 @@ def timed_once(fn):
 
 
 def compare_tile_fwd(name, cfg, starts, packed):
-    """tile_fwd kernel vs its plain version -> (max abs err, kernel out,
-    plain ms)."""
+    """tile_fwd kernel vs its plain version, every output bit for bit ->
+    (max abs err, kernel out, plain ms)."""
     import torch
     from splat_one_tpu_torch.ops import tile_raster as tr
 
@@ -276,9 +325,10 @@ def compare_tile_fwd(name, cfg, starts, packed):
     out_p, plain_ms = timed_once(lambda: tr.tile_fwd_plain(cfg, starts, packed))
     worst = column_err(name, "tile_fwd", out_k[:, :5].transpose(0, 1).reshape(5, -1).T,
                        out_p[:, :5].transpose(0, 1).reshape(5, -1).T)
-    require(bool(torch.equal(out_k[:, tr.CH_NCHUNKS], out_p[:, tr.CH_NCHUNKS])),
-            f"{name}: tile n_chunks differ")
-    require(not bool(out_k[:, 6:].any()), f"{name}: tile pad channels not zero")
+    require(bool(torch.equal(out_k, out_p)), f"{name}: tile_fwd differs from its plain "
+            f"version (max abs err {worst:.3e}; n_chunks equal: "
+            f"{bool(torch.equal(out_k[:, tr.CH_NCHUNKS], out_p[:, tr.CH_NCHUNKS]))})")
+    log(f"  {name}: tile_fwd {fwd_blocks_line('tile_fwd', cfg, starts, out_k)}")
     return worst, out_k, plain_ms
 
 
@@ -305,6 +355,25 @@ def tile_work(cfg, out):
 
     n_chunks = int(out[:, tr.CH_NCHUNKS, 0].sum())
     return n_chunks, n_chunks * cfg.chunk * cfg.npix
+
+
+def tile_fwd_pairs(cfg, starts, packed, out):
+    """(pixel, slot) pairs tile_fwd evaluates: the rows of every tile's
+    processed chunks whose opacity is not below ALPHA_MIN / 2 (the kernel
+    skips the others, padding rows included), times 256 pixels."""
+    import torch
+    from splat_one_tpu_torch.ops import intersect as itx
+    from splat_one_tpu_torch.ops import tile_raster as tr
+    from splat_one_tpu_torch.ops.reference import ALPHA_MIN
+
+    s0 = starts[:-1].long()
+    ends = s0 + out[:, tr.CH_NCHUNKS, 0].long() * cfg.chunk
+    edges = torch.zeros(packed.shape[0] + 1, dtype=torch.long, device=packed.device)
+    edges.index_add_(0, s0, torch.ones_like(s0))
+    edges.index_add_(0, ends, -torch.ones_like(ends))
+    processed = torch.cumsum(edges, 0)[:-1] > 0  # the tiles' ranges are disjoint
+    live = ~(packed[:, itx.ROW_OPAC] < 0.5 * ALPHA_MIN)
+    return int((processed & live).sum()) * cfg.npix
 
 
 def seg_broadcast_problem(proj, w, h, camera_model):
@@ -514,9 +583,10 @@ def compare_fwd(name, cfg, st_starts, packed):
         worst = max(worst, err)
     nch_eq = bool(torch.equal(out_k[:, :, sr.CH_NCHUNKS], out_p[:, :, sr.CH_NCHUNKS]))
     require(nch_eq, f"{name}: n_chunks differ")
-    require(bool(torch.equal(out_k[:, :, 6:], torch.zeros_like(out_k[:, :, 6:]))),
-            f"{name}: pad channels not zero")
-    log(f"  {name}: CS={cfg.cs} " + "; ".join(parts) + "; n_chunks equal")
+    require(bool(torch.equal(out_k, out_p)), f"{name}: stream_fwd differs from its plain "
+            "version")
+    log(f"  {name}: CS={cfg.cs} " + "; ".join(parts) + "; every output bit equal; "
+        + fwd_blocks_line("stream_fwd", cfg, st_starts, out_k))
     return worst, out_k, out_p
 
 
@@ -542,6 +612,29 @@ def gated_pairs(cfg, st_starts, packed, out):
         gate = sr._chunk_gate(cfg, packed[rows], tx[sel], ty[sel], rowmask)
         total += int((gate & (nch[sel] > k)[..., None]).sum())
     return total * cfg.npix
+
+
+def fwd_blocks_line(name, cfg, starts, out):
+    """How a forward input spreads over the kernel's blocks, from its output
+    (name "stream_fwd" or "tile_fwd"): the supertiles (stream) and tiles
+    that composite a chunk, the longest tiles' chunks and all the chunks
+    composited."""
+    import torch
+
+    G = cfg.chunk
+    s = starts.long()
+    if name == "stream_fwd":
+        nch = out[:, :, 5, 0].long()  # [CS, NT]
+        base0 = torch.div(s[:-1], G, rounding_mode="floor") * G
+        stream = -torch.div(base0 - s[1:], G, rounding_mode="floor")
+        head = (f"{int((nch.amax(-1) > 0).sum())} of {cfg.cs} supertiles (the longest "
+                f"stream {int(stream.max()) if stream.numel() else 0} chunks), ")
+    else:
+        nch = out[:, 5, 0].long()
+        head = ""
+    top = torch.sort(nch.flatten(), descending=True).values[:4].tolist()
+    return (f"{head}{int((nch > 0).sum())} of {nch.numel()} tiles composite a chunk; the "
+            f"longest tiles {', '.join(map(str, top))} chunks; {int(nch.sum())} tile-chunks")
 
 
 def cuda_ms(fn, iters):
@@ -1193,18 +1286,32 @@ def tiled_render_phase(dev, card, sc, max_err):
         max_err["tile_fwd"] = max(max_err["tile_fwd"], e_s)
         kernel_ms = cuda_ms(lambda: tr.tile_fwd(cfg, st, packed), 20)
         sph_ms = cuda_ms(lambda: tr.tile_fwd(*inputs["spherical"][:3]), 10)
-        n_chunks, pairs = tile_work(cfg, out_k)
-        bytes_moved = n_chunks * cfg.chunk * itx.NF * 4 + (cfg.ct + 1) * 4 + out_k.numel() * 4
-        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = pairs * OPS_PER_PAIR / F32_OPS_PER_S * 1e3
-        bound_ms, bound_by = max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+        def tile_bound(c, starts, pk, o):
+            """(bound ms, by what, chunks, pairs, bytes) of tile_fwd: the rows
+            of the chunks the tiles composited read once, the output written
+            once, the rows of those chunks that can composite at every pixel x
+            OPS_PER_PAIR."""
+            n_chunks, _ = tile_work(c, o)
+            pairs = tile_fwd_pairs(c, starts, pk, o)
+            nbytes = n_chunks * c.chunk * itx.NF * 4 + (c.ct + 1) * 4 + o.numel() * 4
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = pairs * OPS_PER_PAIR / F32_OPS_PER_S * 1e3
+            return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+                    n_chunks, pairs, nbytes)
+
+        bound_ms, bound_by, n_chunks, pairs, bytes_moved = tile_bound(cfg, st, packed, out_k)
+        sph_bound_ms, sph_by, sph_chunks, sph_pairs, _ = tile_bound(*inputs["spherical"][:3],
+                                                                    out_s)
         torch.cuda.reset_peak_memory_stats()
         base_mem = torch.cuda.memory_allocated()
         rasterization(*g, vm, K, W, H, sh_degree=3, render_mode="RGB+ED", impl="tiled")
         torch.cuda.synchronize()
         peak_mib = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
     log(f"  tile_fwd at 1M/720p pinhole: {kernel_ms:.4f} ms (CUDA events, 20 launches); "
-        f"spherical {sph_ms:.4f} ms; plain version {plain_ms:.1f} ms; bound "
+        f"spherical {sph_ms:.4f} ms (10 launches), bound {sph_bound_ms:.4f} ms by {sph_by} "
+        f"({sph_chunks} chunks, {sph_pairs / 1e6:.1f} M pairs); plain version "
+        f"{plain_ms:.1f} ms; bound "
         f"{bound_ms:.4f} ms by {bound_by} ({n_chunks} chunks processed of "
         f"{int(isect.n_slots) // cfg.chunk}, {pairs / 1e6:.1f} M pixel-slot pairs x "
         f"{OPS_PER_PAIR} ops, {bytes_moved / 1e6:.1f} MB); render peak memory above the "
@@ -1212,7 +1319,7 @@ def tiled_render_phase(dev, card, sc, max_err):
     return dict(name="tile_fwd", route="cuda", source="splat_one_tpu_torch/csrc/tile_fwd.cu",
                 replaces="splat_one_tpu/ops/tile_raster.py:147", max_abs_err=None,
                 ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
+                library_ms=None, spherical_ms=sph_ms, spherical_bound_ms=sph_bound_ms)
 
 
 def tiled_step_phase(dev, card, leaves, vm, Kt, grads_stream, max_err):
@@ -1519,6 +1626,7 @@ def main():
         "edge-partial 40x24": stream_scene(n=200, c=1, w=40, h=24),
         "empty": empty_scene(),
         "deep-stack 96x32": deep_stack_scene(),
+        "crowded spherical 128x64": crowded_spherical_scene(),
         "100k 640x480": bench_scene(100_000, 640, 480, 500.0, -5.5, -4.0, seed=1),
     }
     # kernel vs plain max abs err, over every comparison of this run
@@ -1659,18 +1767,28 @@ def main():
     err, out_k, _ = compare_fwd("serving 1M pinhole", cfg, st, packed)
     max_err["stream_fwd"] = max(max_err["stream_fwd"], err)
     # the spherical request's pose is the identity, as the scene's viewmat
-    cfg_s, st_s, packed_s, _ = stream_inputs(dict(sc, camera_model="spherical"), dev)
-    max_err["stream_fwd"] = max(max_err["stream_fwd"], compare_fwd(
-        "serving 1M spherical", cfg_s, st_s, packed_s)[0])
+    cfg_s, st_s, packed_s, isect_s = stream_inputs(dict(sc, camera_model="spherical"), dev)
+    e_s, out_s, _ = compare_fwd("serving 1M spherical", cfg_s, st_s, packed_s)
+    max_err["stream_fwd"] = max(max_err["stream_fwd"], e_s)
     kernel_ms = cuda_ms(lambda: sr.stream_fwd(cfg, st, packed), 20)
+    sph_ms = cuda_ms(lambda: sr.stream_fwd(cfg_s, st_s, packed_s), 10)
     plain_ms = cuda_ms(lambda: sr.stream_fwd_plain(cfg, st, packed), 1)
-    n_isect = int(isect.n_isect)
-    bytes_moved = n_isect * si.NF * 4 + (cfg.cs + 1) * 4 + out_k.numel() * 4
-    pairs = gated_pairs(cfg, st, packed, out_k)
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = pairs * OPS_PER_PAIR / F32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+
+    def stream_bound(c, starts, pk, n_isect, o):
+        """(bound ms, by what, MB, gated pairs) of stream_fwd on these inputs:
+        each slot row read once, the output written once, and the gated
+        pairs of the chunks the tiles composited x OPS_PER_PAIR."""
+        bytes_moved = n_isect * si.NF * 4 + (c.cs + 1) * 4 + o.numel() * 4
+        pairs = gated_pairs(c, starts, pk, o)
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = pairs * OPS_PER_PAIR / F32_OPS_PER_S * 1e3
+        return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_moved / 1e6, pairs)
+
+    bound_ms, bound_by, mb, pairs = stream_bound(cfg, st, packed, int(isect.n_isect), out_k)
+    sph_bound_ms, sph_by, sph_mb, sph_pairs = stream_bound(
+        cfg_s, st_s, packed_s, int(isect_s.n_isect), out_s)
+    del out_s, packed_s, isect_s
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
     rf.render(requests[0][1], K, "pinhole")
@@ -1678,8 +1796,10 @@ def main():
     peak_mib = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
     log(f"  stream_fwd at 1M/720p: {kernel_ms:.4f} ms (CUDA events, 20 launches); "
         f"plain version {plain_ms:.1f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-        f"({bytes_moved / 1e6:.1f} MB, {pairs / 1e6:.1f} M pixel-slot pairs); "
-        f"render peak memory above the parameters {peak_mib:.0f} MiB | {card}")
+        f"({mb:.1f} MB, {pairs / 1e6:.1f} M pixel-slot pairs); spherical "
+        f"{sph_ms:.4f} ms (10 launches), bound {sph_bound_ms:.4f} ms by {sph_by} "
+        f"({sph_mb:.1f} MB, {sph_pairs / 1e6:.1f} M pixel-slot pairs); render peak memory "
+        f"above the parameters {peak_mib:.0f} MiB | {card}")
 
     fwd_row = {
         "name": "stream_fwd",
@@ -1691,6 +1811,8 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "spherical_ms": sph_ms,
+        "spherical_bound_ms": sph_bound_ms,
     }
     del params, alive, render_fn, outputs, proj, isect, packed, out_k
     torch.cuda.empty_cache()

@@ -1,32 +1,17 @@
 // Device helpers shared by the backward compositing kernels (stream_bwd.cu,
-// tile_bwd.cu): 16-byte asynchronous copies into shared memory and the
-// per-slot sum of the reduced values over a warp of the plain versions'
-// tree.
+// tile_bwd.cu): the exact division by 1 - alpha and the per-slot sum of
+// the reduced values over a warp of the plain versions' tree. Chunks are
+// staged with cp_async.cuh.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace bwd {
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
-
-// 16-byte asynchronous copy, global -> shared (cached in L2 only).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until every copy this thread issued has landed; a __syncthreads()
-// after it makes the block's copies visible to all its threads.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // a / b as IEEE f32 division rounds it, for a normal b > 0, without the
 // division's slow-path branch (which splits the instruction stream and

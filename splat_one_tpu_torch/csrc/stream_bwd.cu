@@ -165,9 +165,9 @@ stream_bwd_kernel(const int* __restrict__ st_starts,
 
   // chunk k into buffer k & 1, 16 B a thread
   auto stage = [&](int k) {
-    bwd::cp_async16(s_chunk + (k & 1) * CHUNK4 + tid,
-                    packed + static_cast<int64_t>(base0 + k * G) * (NF / 4) + tid);
-    bwd::cp_async_commit();
+    cp_async::copy16(s_chunk + (k & 1) * CHUNK4 + tid,
+                     packed + static_cast<int64_t>(base0 + k * G) * (NF / 4) + tid);
+    cp_async::commit();
   };
   // gate bytes of the staged chunk k, into gate buffer k & 1
   auto build_gate = [&](int k) {
@@ -194,7 +194,7 @@ stream_bwd_kernel(const int* __restrict__ st_starts,
 
   if (nchunks > 0) {  // block-uniform
     stage(0);
-    bwd::cp_async_wait_all();
+    cp_async::wait_all();
     __syncthreads();
     build_gate(0);
   }
@@ -301,7 +301,7 @@ stream_bwd_kernel(const int* __restrict__ st_starts,
       T[q] = T[q] * tin[q];
       gP[q] = gP[q] + pre[q];
     }
-    bwd::cp_async_wait_all();
+    cp_async::wait_all();
     __syncthreads();  // chunk k's partials and chunk k + 1's rows are in
     if (k + 1 < nchunks) build_gate(k + 1);
 

@@ -134,9 +134,9 @@ tile_bwd_kernel(const int* __restrict__ starts,
     __syncthreads();  // the previous chunk's rows and partials are consumed
     // chunk k in, four 16 B copies a thread
     const float4* src = packed + row0 * (NF / 4);
-    for (int i = tid; i < CHUNK4; i += THREADS) bwd::cp_async16(s_chunk + i, src + i);
-    bwd::cp_async_commit();
-    bwd::cp_async_wait_all();
+    for (int i = tid; i < CHUNK4; i += THREADS) cp_async::copy16(s_chunk + i, src + i);
+    cp_async::commit();
+    cp_async::wait_all();
     __syncthreads();
 
     float dconst[2], tin[2], pre[2];

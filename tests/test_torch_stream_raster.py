@@ -5,8 +5,10 @@ JAX package's own tests run it. Both sides get the same stream layout and
 packed field table (the JAX package's, as numpy), so the comparison is the
 compositing function alone: rgb, alpha and depth within 1e-5 relative
 (the JAX kernel forms in-chunk transmittance with a doubling product, the
-port serially), n_chunks exactly equal. The CUDA kernel is held against
-the plain version by the ``gpu`` test, which needs a card.
+port serially), n_chunks exactly equal. The scenes: the small pinhole,
+spherical and edge-partial ones and a crowded spherical view whose longest
+supertile holds 36 chunks. The CUDA kernel is held against the plain
+version bit for bit by the ``gpu`` test, which needs a card.
 """
 
 import functools
@@ -15,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import deep_stack_scene
+from chip_smoke import crowded_spherical_scene, deep_stack_scene
 from splat_one_tpu_torch.ops import projection as tp
 from splat_one_tpu_torch.ops import stream_isect as tsi
 from splat_one_tpu_torch.ops import stream_raster as tsr
@@ -43,11 +45,20 @@ def _scene(n=600, c=2, seed=0, w=64, h=48, spherical=False):
     return means, quats, scales, opac, colors, viewmats, Ks, w, h
 
 
-def _deep_stack_scene():
-    """chip_smoke.py::deep_stack_scene, as ``_scene``'s tuple."""
-    sc = deep_stack_scene()
+def _as_tuple(sc):
+    """A scene dict of chip_smoke.py as ``_scene``'s tuple."""
     return tuple(sc[k] for k in ("means", "quats", "scales", "opac", "colors", "viewmats",
                                  "Ks", "w", "h"))
+
+
+def _deep_stack_scene():
+    """chip_smoke.py::deep_stack_scene, as ``_scene``'s tuple."""
+    return _as_tuple(deep_stack_scene())
+
+
+def _crowded_scene():
+    """chip_smoke.py::crowded_spherical_scene, as ``_scene``'s tuple."""
+    return _as_tuple(crowded_spherical_scene())
 
 
 CASES = {
@@ -55,16 +66,25 @@ CASES = {
     "spherical": (dict(spherical=True), "spherical"),
     "edge-partial": (dict(n=200, c=1, w=40, h=24), "pinhole"),
 }
-# the gpu tests of the backward kernels: (a function making the scene,
-# camera model) for each of CASES and the deep-stack scene
+# the gpu tests of the kernels: (a function making the scene, camera model)
+# for each of CASES, the deep-stack scene and the crowded spherical scene
 GPU_CASES = {k: (functools.partial(_scene, **kw), m) for k, (kw, m) in CASES.items()}
 GPU_CASES["deep-stack"] = (_deep_stack_scene, "pinhole")
+GPU_CASES["crowded-spherical"] = (_crowded_scene, "spherical")
+# the forward's parity against the JAX kernel: CASES and the crowded scene
+FWD_CASES = {k: GPU_CASES[k] for k in (*CASES, "crowded-spherical")}
 
 
 def _inputs(kw, model):
-    """JAX stream layout + packed table for a scene, and the configs. (JAX
-    is imported here, not at module level, so that the ``gpu`` test runs
-    where JAX is not installed.)"""
+    """JAX stream layout + packed table for ``_scene(**kw)``, and the
+    configs."""
+    return _jax_inputs(_scene(**kw), model)
+
+
+def _jax_inputs(scene, model):
+    """JAX stream layout + packed table for a scene (``_scene``'s tuple),
+    and the configs. (JAX is imported here, not at module level, so that
+    the ``gpu`` tests run where JAX is not installed.)"""
     import jax
     import jax.numpy as jnp
     from splat_one_tpu.ops import projection as jp
@@ -72,7 +92,7 @@ def _inputs(kw, model):
     from splat_one_tpu.ops import stream_raster as jsr
     from test_torch_stream_isect import _jbuild
 
-    means, quats, scales, opac, colors, viewmats, Ks, w, h = _scene(**kw)
+    means, quats, scales, opac, colors, viewmats, Ks, w, h = scene
     pj = jax.jit(jp.project_gaussians, static_argnums=(6, 7),
                  static_argnames=("camera_model",))(
         *map(jnp.asarray, (means, quats, scales, opac, viewmats, Ks)), w, h,
@@ -104,9 +124,10 @@ def _port_inputs(scene, model, device):
     return cfg, isect, tsi.pack_stream(tsi.build_fields(proj), isect, caps)
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(FWD_CASES))
 def test_plain_forward_matches_jax_kernel(case):
-    cfg_j, cfg_t, ij, packed, jsr = _inputs(*CASES[case])
+    scene, model = FWD_CASES[case]
+    cfg_j, cfg_t, ij, packed, jsr = _jax_inputs(scene(), model)
     st = ij.st_starts
     out_j = np.asarray(jsr._fwd_call(cfg_j, st, packed.T))
     before = dict(cuda_build.launch_counts)
@@ -181,6 +202,48 @@ def test_deep_stack_scene_layout():
     assert out_t[:, ttr.CH_NCHUNKS, 0].max() == 9
 
 
+def test_crowded_spherical_scene_layout():
+    """The crowded spherical scene has what the forward kernels' gpu tests
+    need: a supertile of at least 30 chunks whose slots straddle the
+    azimuth seam and whose tiles stop at different chunks, one never; on
+    the tiled path a tile that stops early and one that never does."""
+    from splat_one_tpu_torch.ops import intersect as tis
+    from splat_one_tpu_torch.ops import tile_raster as ttr
+
+    scene = _crowded_scene()
+    w = scene[7]
+    cfg, isect, packed = _port_inputs(scene, "spherical", "cpu")
+    assert not bool(isect.overflow) and cfg.wrap_x
+    starts = isect.st_starts.long()
+    chunks = (starts[1:] - (starts[:-1] // 128) * 128 + 127) // 128
+    assert int(chunks.argmax()) == 0 and int(chunks[0]) == 36
+    # supertile 0 (u < 32 px) holds slots centred across the seam
+    x = packed[int(starts[0]):int(starts[1]), tsi.COL_X]
+    assert bool((x > w - 16).any()) and bool((x < 16).any())
+    out = tsr.stream_fwd(cfg, isect.st_starts, packed)
+    assert out[0, :, tsr.CH_NCHUNKS, 0].tolist() == [1.0, 36.0, 16.0, 28.0]
+    T = 1.0 - out[0, :, 3]
+    assert bool((T[1] >= tsr.TERM_THRESH).any())  # tile 1 never terminates
+    for j in (0, 2, 3):
+        assert bool((T[j] < tsr.TERM_THRESH).all())
+    means, quats, scales, opac, colors, viewmats, Ks, w, h = scene
+    t = torch.as_tensor
+    proj = tp.project_gaussians(*map(t, (means, quats, scales, opac, viewmats, Ks)),
+                                w, h, colors=t(colors), camera_model="spherical")
+    caps = tis.IsectCaps.choose(proj.depths.shape[1], 1, 32)
+    it = tis.build_intersections(proj, w, h, 16, caps, camera_model="spherical")
+    assert not bool(it.overflow)
+    cfg_t = ttr.RasterCfg(width=w, height=h, tile_size=16, num_cameras=1,
+                          num_gaussians=proj.depths.shape[1], chunk=128,
+                          align_cap=caps.align_cap, wrap_x=True)
+    pk = tis.pack_fields(proj.means2d, proj.conics, proj.colors, proj.opacities,
+                         proj.depths, it)
+    out_t = ttr.tile_fwd(cfg_t, it.tile_starts, pk)
+    ts = it.tile_starts.long()
+    assert ((ts[1:3] - ts[0:2]) // 128).tolist() == [19, 27]
+    assert out_t[0:2, ttr.CH_NCHUNKS, 0].tolist() == [1.0, 27.0]
+
+
 def test_stream_fwd_rejects_other_devices():
     cfg = tsr.StreamCfg(width=32, height=32, tile_size=16, num_cameras=1,
                         num_gaussians=1, chunk=128, exp_cap=128, n_supertiles=1)
@@ -190,22 +253,25 @@ def test_stream_fwd_rejects_other_devices():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(GPU_CASES))
 def test_cuda_kernel_matches_plain(case):
-    """Run on the card with ``python -m pytest
+    """The kernel gives the plain version's bits, each launch counted once,
+    two launches equal. Run on the card with ``python -m pytest
     tests/test_torch_stream_raster.py -m gpu --noconftest`` (the suite's
     conftest imports JAX)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kw, model = CASES[case]
-    cfg, isect, packed = _port_inputs(_scene(**kw), model, "cuda")
+    scene, model = GPU_CASES[case]
+    cfg, isect, packed = _port_inputs(scene(), model, "cuda")
     st = isect.st_starts
     n0 = cuda_build.launch_counts["stream_fwd"]
     out_k = tsr.stream_fwd(cfg, st, packed)
     assert cuda_build.launch_counts["stream_fwd"] == n0 + 1
+    assert torch.equal(out_k, tsr.stream_fwd(cfg, st, packed))
+    assert cuda_build.launch_counts["stream_fwd"] == n0 + 2
     out_p = tsr.stream_fwd_plain(cfg, st, packed)
     torch.cuda.synchronize()
-    assert torch.allclose(out_k, out_p, rtol=0, atol=1e-5)
-    assert torch.equal(out_k[:, :, tsr.CH_NCHUNKS], out_p[:, :, tsr.CH_NCHUNKS])
+    assert torch.equal(out_k, out_p)
+    assert out_k[:, :, tsr.CH_NCHUNKS].max() >= 1

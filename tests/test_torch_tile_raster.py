@@ -3,7 +3,8 @@
 The JAX Pallas kernels run in interpret mode on the CPU, as the JAX
 package's own tests run them. Both sides get the same per-tile layout and
 packed field table (the JAX package's, as numpy), so each comparison is
-the compositing function alone:
+the compositing function alone, on the small pinhole, spherical and
+edge-partial scenes and the crowded spherical one:
 - forward: rgb, alpha and depth within 1e-5 relative (the JAX kernel
   forms the in-chunk transmittance in log space with a triangular matmul,
   the port serially), n_chunks exactly equal;
@@ -27,7 +28,7 @@ from splat_one_tpu_torch.ops import projection as tp
 from splat_one_tpu_torch.ops import tile_raster as ttr
 from splat_one_tpu_torch.utils import cuda_build
 
-from test_torch_stream_raster import CASES, GPU_CASES, _scene
+from test_torch_stream_raster import CASES, FWD_CASES, GPU_CASES
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -40,17 +41,18 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _inputs(kw, model):
+def _inputs(scene, model):
     """JAX per-tile layout, packed table ([NF, AL]) and projection for a
-    scene, and both configs. (JAX is imported here, not at module level, so
-    that the ``gpu`` tests run where JAX is not installed.)"""
+    scene (``_scene``'s tuple), and both configs. (JAX is imported here, not
+    at module level, so that the ``gpu`` tests run where JAX is not
+    installed.)"""
     import jax
     import jax.numpy as jnp
     from splat_one_tpu.ops import intersect as jis
     from splat_one_tpu.ops import projection as jp
     from splat_one_tpu.ops import tile_raster as jtr
 
-    means, quats, scales, opac, colors, viewmats, Ks, w, h = _scene(**kw)
+    means, quats, scales, opac, colors, viewmats, Ks, w, h = scene
     pj = jax.jit(jp.project_gaussians, static_argnums=(6, 7),
                  static_argnames=("camera_model",))(
         *map(jnp.asarray, (means, quats, scales, opac, viewmats, Ks)), w, h,
@@ -94,16 +96,17 @@ def _col_rel(a, b):
     return np.abs(a - b).max(0) / (np.abs(b).max(0) + 1e-30)
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_plain_tiles_match_jax_kernels(case):
-    import jax.numpy as jnp
-
-    cfg_j, cfg_t, ij, packed, _, jtr = _inputs(*CASES[case])
+def _forward_matches(case):
+    """The plain forward against the JAX kernel on ``FWD_CASES[case]`` ->
+    what the backward comparison needs."""
+    scene, model = FWD_CASES[case]
+    cfg_j, cfg_t, ij, packed, _, jtr = _inputs(scene(), model)
     out_j = jtr._fwd_call(cfg_j, ij.tile_starts, packed)
     starts = torch.as_tensor(np.array(ij.tile_starts))
     packed_t = torch.as_tensor(np.array(packed).T.copy())
     before = dict(cuda_build.launch_counts)
     out_t = ttr.tile_fwd(cfg_t, starts, packed_t)
+    assert dict(cuda_build.launch_counts) == before  # CPU: plain version
     assert out_t.shape == (cfg_t.ct, ttr.OUT_CH, 256) == out_j.shape
     o_t, o_j = out_t.numpy(), np.asarray(out_j)
     for ch, name in ((slice(0, 3), "rgb"), (slice(3, 4), "alpha"), (slice(4, 5), "depth")):
@@ -114,6 +117,17 @@ def test_plain_tiles_match_jax_kernels(case):
     np.testing.assert_array_equal(o_t[:, 6:], 0.0)
     for x, y in zip(ttr.tiles_to_image(cfg_t, out_t), jtr.tiles_to_image(cfg_j, o_t)):
         np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    return cfg_j, cfg_t, ij, packed, starts, packed_t, out_j, o_j, jtr
+
+
+def _backward_matches(fwd, same_rows=True):
+    """The plain backward against the JAX kernel on the forward output of
+    ``_forward_matches`` and one cotangent: every gradient column within
+    5e-4 of its max and, where ``same_rows``, the same rows written."""
+    import jax.numpy as jnp
+
+    cfg_j, cfg_t, ij, packed, starts, packed_t, out_j, o_j, jtr = fwd
+    before = dict(cuda_build.launch_counts)
 
     # the backward on the same forward output and cotangent
     gout = _gout(cfg_t, 3)
@@ -121,13 +135,28 @@ def test_plain_tiles_match_jax_kernels(case):
                                     jnp.asarray(gout))).T
     pg_t = ttr.tile_bwd(cfg_t, starts, packed_t, torch.as_tensor(o_j.copy()),
                         torch.as_tensor(gout)).numpy()
-    assert dict(cuda_build.launch_counts) == before  # CPU: plain versions
+    assert dict(cuda_build.launch_counts) == before  # CPU: plain version
     assert pg_t.shape == pg_j.shape == (cfg_t.align_cap, tis.NF)
     written = np.abs(pg_j[:, :tis.N_GROWS]).max(1) > 0
     assert written.sum() > 100
-    np.testing.assert_array_equal(np.abs(pg_t[:, :tis.N_GROWS]).max(1) > 0, written)
+    if same_rows:
+        np.testing.assert_array_equal(np.abs(pg_t[:, :tis.N_GROWS]).max(1) > 0, written)
     assert (_col_rel(pg_t, pg_j)[:tis.N_GROWS] < 5e-4).all()
     np.testing.assert_array_equal(pg_t[:, tis.N_GROWS:], 0.0)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_tiles_match_jax_kernels(case):
+    _backward_matches(_forward_matches(case))
+
+
+def test_plain_forward_matches_jax_kernel_crowded():
+    """The crowded spherical scene (a 36-chunk supertile across the azimuth
+    seam, 27 chunks replayed by its longest tile), forward and backward.
+    The backward is held to the column bar but not to the same written
+    rows: a few rows of saturated pixels (T near 1e-44) get gradients
+    below 2e-7 on one side and exact zeros on the other (ROADMAP Queue 3)."""
+    _backward_matches(_forward_matches("crowded-spherical"), same_rows=False)
 
 
 def test_plain_forward_early_termination():
@@ -156,7 +185,8 @@ def test_composite_tiles_grads_match_jax():
     import jax
     import jax.numpy as jnp
 
-    cfg_j, cfg_t, ij, _, pj, jtr = _inputs(*CASES["pinhole"])
+    scene, model = FWD_CASES["pinhole"]
+    cfg_j, cfg_t, ij, _, pj, jtr = _inputs(scene(), model)
     C, N = pj.depths.shape
     names = ("means2d", "conics", "colors", "opacities", "depths")
     fields = [np.array(getattr(pj, k)) for k in names] + [np.zeros((C, N, 2), np.float32)]
@@ -211,10 +241,12 @@ def test_cuda_tile_kernels_match_plain(case):
     st = isect.tile_starts
     n0 = dict(cuda_build.launch_counts)
     out_k = ttr.tile_fwd(cfg, st, packed)
+    assert cuda_build.launch_counts["tile_fwd"] == n0.get("tile_fwd", 0) + 1
+    # the forward gives the plain version's bits, and a second launch its own
+    assert torch.equal(out_k, ttr.tile_fwd(cfg, st, packed))
     out_p = ttr.tile_fwd_plain(cfg, st, packed)
     torch.cuda.synchronize()
-    assert torch.allclose(out_k, out_p, rtol=0, atol=1e-5)
-    assert torch.equal(out_k[:, ttr.CH_NCHUNKS], out_p[:, ttr.CH_NCHUNKS])
+    assert torch.equal(out_k, out_p)
     gout = torch.as_tensor(_gout(cfg, 5), device="cuda")
     pg_k = ttr.tile_bwd(cfg, st, packed, out_k, gout)
     assert cuda_build.launch_counts["tile_bwd"] == n0.get("tile_bwd", 0) + 1
@@ -222,6 +254,6 @@ def test_cuda_tile_kernels_match_plain(case):
     assert torch.equal(pg_k, ttr.tile_bwd(cfg, st, packed, out_k, gout))
     pg_p = ttr.tile_bwd_plain(cfg, st, packed, out_k, gout)
     torch.cuda.synchronize()
-    assert cuda_build.launch_counts["tile_fwd"] == n0.get("tile_fwd", 0) + 1
+    assert cuda_build.launch_counts["tile_fwd"] == n0.get("tile_fwd", 0) + 2
     err = (pg_k - pg_p).abs().max(0).values
     assert (err <= 1e-5 * torch.clamp(pg_p.abs().max(0).values, min=1.0)).all(), err

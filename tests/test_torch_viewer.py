@@ -7,8 +7,9 @@
   ``_render_view_alt`` activations. Expected depth is compared times
   alpha: ED divides by alpha, which near zero magnifies last-ulp
   differences past any fixed tolerance.
-- Importing the port (every submodule) and chip_smoke.py loads neither
-  ``jax`` nor ``splat_one_tpu``, and no port source imports them.
+- Importing the port (every submodule), chip_smoke.py and
+  raster_anatomy.py loads neither ``jax`` nor ``splat_one_tpu``, and no
+  port source imports them.
 - ``make_render_fn`` defaults to CUDA and raises without it.
 """
 
@@ -106,7 +107,7 @@ def test_port_never_imports_jax():
             "splat_one_tpu_torch.data.synthetic"} <= set(mods)
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r} + ['chip_smoke']:\n"
+        f"for m in {mods!r} + ['chip_smoke', 'raster_anatomy']:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'splat_one_tpu' or m.startswith('splat_one_tpu.')]\n"
@@ -114,7 +115,7 @@ def test_port_never_imports_jax():
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
     imp = re.compile(r"^\s*(import|from)\s+(jax|splat_one_tpu)(\s|\.|$)", re.M)
-    for f in list(pkg.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+    for f in list(pkg.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "raster_anatomy.py"]:
         assert not imp.search(f.read_text()), f
 
 
