@@ -16,10 +16,10 @@ Phases (any failure exits non-zero and prints no result line):
      spherical scene (a supertile of 36 chunks across the azimuth seam,
      its tiles stopping after 1, 16 and 28 of them and one never) and a
      100k-gaussian 640x480 scene, for the stream forward, backward (with
-     and without absgrad) and segmented-reduce kernels and (3b) the tiled
-     forward and backward kernels on the same scenes' per-tile layouts and
-     the seg_broadcast kernel on their stream builds and a ragged random
-     problem; the forward kernels give their plain versions' bits (with
+     and without absgrad), keyed_perm and segmented-reduce kernels and
+     (3b) the tiled forward and backward kernels and the tiled reduction
+     on the same scenes' per-tile layouts and the seg_broadcast kernel on
+     their stream builds and a ragged random problem; the forward kernels give their plain versions' bits (with
      each input's blocks: the tiles that composite a chunk and the
      longest tiles' chunks); each backward kernel launched twice gives the
      same bits; the
@@ -39,12 +39,17 @@ Phases (any failure exits non-zero and prints no result line):
      scene (loss sum(render) + sum(alpha), gradients into all five
      inputs): step time, Mpix/s, per-layer times, device trace, peak
      memory, launch counts, both backward kernels against their plain
-     versions at these inputs (stream_bwd with and without absgrad);
-     (a-i) the same step through impl="tiled", its gradients against the
-     stream step's and the tiled backward kernel at these inputs; (a-ii) the stream build under
+     versions at these inputs (stream_bwd with and without absgrad), the
+     reduction of its rows (keyed_perm and seg_reduce bit for bit, with
+     and without absgrad; the path's time beside the keyed-row selection
+     + index_add_ and the parent's sort and gather; each kernel's device
+     time and bound); (a-i) the same step through impl="tiled", its
+     gradients against the stream step's, the tiled backward kernel and
+     the tiled reduction at these inputs; (a-ii) the stream build under
      SPLAT_SEG_BROADCAST=cond with the observed window: the layout equal
      to the default build's, the seg_broadcast kernel launched with no
-     fallback, its time beside the default expansion's; (b) the port's
+     fallback, its device time and bound, the kernel path beside the
+     default expansion in turns; (b) the port's
      Trainer, 1M random-init gaussians at 1280x720, SH degree 3, GT
      rendered by the port from 200k gaussians seen by 8 ring cameras,
      with a densification refine in its 6 steps, and its checkpoint
@@ -53,7 +58,9 @@ Phases (any failure exits non-zero and prints no result line):
      (b)'s; (d) make_synthetic_scene on the card (its defaults, the
      surface rings, spherical), its tiled GT against the stream render;
   6. the kernels line (JSON; the forward rows also carry spherical_ms and
-     spherical_bound_ms), then the card line, then the result line.
+     spherical_bound_ms; the seg_reduce row is the stream reduction path,
+     with its kernel's and its tiled launch's figures beside), then the
+     card line, then the result line.
 """
 
 import contextlib
@@ -378,41 +385,45 @@ def tile_fwd_pairs(cfg, starts, packed, out):
 
 def seg_broadcast_problem(proj, w, h, camera_model):
     """The stream builder's expansion problem for a projection:
-    (sx0, sy0, span, ka, offsets, depth, counts), as
+    ((sx0, sy0, span, ka, offsets, depth, counts), its SlotGrid), as
     stream_isect.build_stream_intersections hands it to seg_broadcast."""
     import torch
+    from splat_one_tpu_torch.ops import seg_broadcast as sgb
     from splat_one_tpu_torch.ops import stream_isect as si
 
+    C, N = proj.depths.shape
+    _, _, sw, sh = si.supertile_grid(w, h, 16)
     sx0, span_x, sy0, span_y = si.parent_spans(proj, w, h, 16, si.SS, camera_model)
     counts = span_x * span_y
     offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
-    return (sx0, sy0, torch.clamp(span_x, min=1), torch.zeros_like(counts), offsets,
+    prob = (sx0, sy0, torch.clamp(span_x, min=1), torch.zeros_like(counts), offsets,
             proj.depths.reshape(-1), counts)
+    return prob, sgb.SlotGrid(n=N, sw=sw, ns=sw * sh, cs=C * sw * sh,
+                              wrap=camera_model == "spherical")
 
 
-def compare_seg_broadcast(name, prob, exp_cap, slab):
-    """seg_broadcast kernel vs its plain version (every output equal) and,
-    where every window covers its chunk, the kernel path vs the default
-    expansion on the live slots -> (plain ms, covered)."""
+def compare_seg_broadcast(name, prob, grid, exp_cap, slab):
+    """seg_broadcast kernel vs its plain version (every slot's key and
+    owner equal) and, where every window covers its chunk, the kernel path
+    vs the default path on the live slots -> (plain ms, covered)."""
     import torch
     from splat_one_tpu_torch.ops import seg_broadcast as sgb
 
     okv, pbases, offs_pad = sgb.coverage_windows(prob[4], prob[6], exp_cap, slab)
-    table = sgb.parent_table(*prob[:6])
-    m_k = sgb.expand_parent_meta(table, offs_pad, pbases, slab)
-    m_p, plain_ms = timed_once(
-        lambda: sgb.expand_parent_meta_plain(table, offs_pad, pbases, slab))
-    require(bool(torch.equal(m_k, m_p)), f"{name}: seg_broadcast kernel vs plain differ")
+    args = (*prob[:4], prob[5], offs_pad, pbases, exp_cap, grid, slab)
+    key_k, g_k = sgb.expand_parent_meta(*args)
+    (key_p, g_p), plain_ms = timed_once(lambda: sgb.expand_parent_meta_plain(*args))
+    require(bool(torch.equal(key_k, key_p)) and bool(torch.equal(g_k, g_p)),
+            f"{name}: seg_broadcast kernel vs plain differ")
     covered = bool(okv.all())
     n_live = min(int(prob[4][-1] + prob[6][-1]), exp_cap)
     if covered:
-        got = sgb.expand_meta_streamed(*prob, exp_cap, "kernel", slab)
-        want = sgb.expand_meta_streamed(*prob, exp_cap, "xla")
-        for g, w_, col in zip(got, want, ("sx0", "sy0", "span", "ka", "off", "depth",
-                                          "parent")):
-            require(bool(torch.equal(g[:n_live], w_[:n_live])),
+        got = sgb.expand_slots(*prob, exp_cap, grid, "kernel", slab)
+        want = sgb.expand_slots(*prob, exp_cap, grid, "xla")
+        for g, w_, col in zip(got, want, ("key", "parent")):
+            require(bool(torch.equal(g[:n_live].long(), w_[:n_live].long())),
                     f"{name}: seg_broadcast {col} differs from the default expansion")
-    log(f"  {name}: seg_broadcast kernel equal to its plain version over {exp_cap} "
+    log(f"  {name}: seg_broadcast kernel equal to its plain version over {key_k.shape[0]} "
         f"slots (slab {slab}); {'kernel path equal to the default expansion on the ' + str(n_live) + ' live slots' if covered else 'a window does not cover its chunk'}")
     return plain_ms, covered
 
@@ -489,7 +500,8 @@ def tiled_kernel_checks(scenes, dev, max_err):
 
     from splat_one_tpu_torch.ops import tile_raster as tr
 
-    log("phase 3b: tile_fwd, tile_bwd and seg_broadcast kernels vs plain versions")
+    log("phase 3b: tile_fwd, tile_bwd, seg_reduce (tiled) and seg_broadcast kernels vs "
+        "plain versions")
     for i, (name, sc) in enumerate(scenes.items()):
         proj = project(sc, dev)
         cfg, starts, packed, isect = tile_inputs(sc, proj)
@@ -498,18 +510,22 @@ def tiled_kernel_checks(scenes, dev, max_err):
         gout = torch.as_tensor(rng.normal(size=tuple(out_k.shape)).astype(np.float32),
                                device=dev)
         e_b, pg_k, _ = compare_tile_bwd(name, cfg, starts, packed, out_k, gout)
+        e_r, _ = compare_tiled_reduction(name, pg_k, isect,
+                                         cfg.num_cameras * cfg.num_gaussians)
         max_err["tile_fwd"] = max(max_err["tile_fwd"], e_f)
         max_err["tile_bwd"] = max(max_err["tile_bwd"], e_b)
+        max_err["seg_reduce"] = max(max_err["seg_reduce"], e_r)
         log(f"  {name}: CT={cfg.ct}, n_isect {int(isect.n_isect)}, up to "
             f"{int(out_k[:, tr.CH_NCHUNKS, 0].max())} chunks a tile; tile_fwd abs err {e_f:.3e}, "
             f"n_chunks equal; tile_bwd abs err {e_b:.3e} over "
-            f"{int((pg_k.abs().amax(1) > 0).sum())} written rows, two launches equal")
+            f"{int((pg_k.abs().amax(1) > 0).sum())} written rows, two launches equal; "
+            f"the tiled reduction equal to its plain version bit for bit")
         # seg_broadcast on the same scene's stream build
         C, N = proj.depths.shape
         _, _, sw, sh = si.supertile_grid(sc["w"], sc["h"], 16)
         caps = si.StreamCaps.choose(N, C, C * sw * sh)
-        prob = seg_broadcast_problem(proj, sc["w"], sc["h"], sc["camera_model"])
-        compare_seg_broadcast(name, prob, caps.exp_cap, caps.sb_slab)
+        prob, grid = seg_broadcast_problem(proj, sc["w"], sc["h"], sc["camera_model"])
+        compare_seg_broadcast(name, prob, grid, caps.exp_cap, caps.sb_slab)
         with seg_broadcast_path(None):
             want = si.build_stream_intersections(proj, sc["w"], sc["h"], 16, caps,
                                                  camera_model=sc["camera_model"])
@@ -527,8 +543,13 @@ def tiled_kernel_checks(scenes, dev, max_err):
     n_isect = int(prob[4][-1] + prob[6][-1])
     exp_cap = -(-(n_isect + 2048) // 1024) * 1024
     slab = sgb.required_slab(prob[4], prob[6], exp_cap)
-    _, covered = compare_seg_broadcast(f"ragged {prob[0].shape[0]} parents, zero-count runs",
-                                       prob, exp_cap, slab)
+    # 100,000 parents a camera, 41 supertiles a row, the past-the-total id
+    # far above the rest
+    grid = sgb.SlotGrid(n=100_000, sw=41, ns=41 * 23, cs=1 << 20, wrap=False)
+    for g in (grid, grid._replace(wrap=True)):
+        _, covered = compare_seg_broadcast(
+            f"ragged {prob[0].shape[0]} parents, zero-count runs, wrap {g.wrap}", prob, g,
+            exp_cap, slab)
     require(covered and slab < sgb.SLAB, f"ragged problem: slab {slab}, covered {covered}")
     max_err["seg_broadcast"] = 0.0  # every comparison above is exact equality
     stream_vs_tiled(dev)
@@ -651,6 +672,33 @@ def cuda_ms(fn, iters):
     return a.elapsed_time(b) / iters
 
 
+# the launches of keyed_perm (csrc/keyed_perm.cu), by kernel name
+KEYED_PERM_KERNELS = ("count_kernel", "scan_totals_kernel", "scan_top_kernel",
+                      "scan_write_kernel", "place_kernel", "rank_kernel")
+
+
+def device_ms(fn, iters, names=None):
+    """Device time per call of ``fn`` (torch.profiler over ``iters``
+    calls): the summed durations of its device activities whose name holds
+    one of ``names`` (all of them for None). For a kernel shorter than its
+    wrapper's host work, back-to-back CUDA events time the host; this times
+    the kernel. None where the profiler saw no such activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and (names is None or any(n in e.name for n in names)))
+    return us / iters / 1e3 if us else None
+
+
 def device_trace(fn, iters):
     """torch.profiler over ``iters`` calls of ``fn``: device activities
     (kernels, copies, memsets) per call, device busy ms per call (union of
@@ -739,11 +787,11 @@ def column_err(name, label, got, want):
 def compare_bwd(name, cfg, st_starts, st_starts_al, packed, out, gout, m0):
     """Backward kernel vs plain version on the same inputs (key column
     exactly, gradient columns within KERNEL_TOL; a second launch bit for
-    bit), then the segmented reduce kernel vs plain on the kernel's sorted
-    rows. Returns (max abs
-    err bwd, max abs err reduce, kernel rows, sorted rows, bounds)."""
+    bit), then the reduction of the kernel's rows: keyed_perm and the
+    segmented reduce kernel each bit for bit against their plain versions.
+    Returns (max abs err bwd, max abs err reduce, kernel rows, perm,
+    bounds)."""
     import torch
-    from splat_one_tpu_torch.ops import seg_reduce as sgr
     from splat_one_tpu_torch.ops import stream_isect as si
     from splat_one_tpu_torch.ops import stream_raster as sr
 
@@ -758,17 +806,53 @@ def compare_bwd(name, cfg, st_starts, st_starts_al, packed, out, gout, m0):
             f"{name}: backward key / pad columns differ")
     e_bwd = column_err(name, "backward", pg_k[:, :si.GCOL_KEY], pg_p[:, :si.GCOL_KEY])
     n_payload = si.N_GCOLS if cfg.absgrad else si.GCOL_ABSDX
-    rows, bounds = si.sort_grad_rows(pg_k, m0)
-    red_k = sgr.segment_reduce_rows(rows, bounds, n_payload)
-    red_p = sgr.segment_reduce_plain(rows, bounds, n_payload)
-    torch.cuda.synchronize()
-    e_red = column_err(name, "seg_reduce", red_k.T, red_p.T)
+    e_red, perm, bounds = compare_stream_reduction(name, pg_k, m0, n_payload)
     n_rows = int((pg_k[:, si.GCOL_KEY] > 0).sum())
     log(f"  {name}: stream_bwd (absgrad {cfg.absgrad}) abs err {e_bwd:.3e} over "
-        f"{n_rows} keyed rows, key column equal, two launches equal; seg_reduce abs "
-        f"err {e_red:.3e} "
-        f"over {m0} gaussians")
-    return e_bwd, e_red, pg_k, rows, bounds
+        f"{n_rows} keyed rows, key column equal, two launches equal; keyed_perm and "
+        f"seg_reduce equal to their plain versions bit for bit over {m0} gaussians")
+    return e_bwd, e_red, pg_k, perm, bounds
+
+
+def compare_stream_reduction(name, pg, m0, n_payload):
+    """The stream reduction of the backward's rows ``pg``: keyed_perm and
+    seg_reduce kernels against their plain versions, every output bit
+    for bit, and the path (reduce_stream_grads) equal to them ->
+    (max abs err, perm, bounds)."""
+    import torch
+    from splat_one_tpu_torch.ops import seg_reduce as sgr
+    from splat_one_tpu_torch.ops import stream_isect as si
+
+    perm, bounds = sgr.keyed_perm(pg, m0)
+    red_k = sgr.segment_reduce_rows(pg, perm, bounds, n_payload)
+    perm_p, bounds_p = sgr.keyed_perm_plain(pg, m0)
+    require(bool(torch.equal(bounds, bounds_p))
+            and bool(torch.equal(perm[:perm_p.shape[0]], perm_p)),
+            f"{name}: keyed_perm differs from its plain version")
+    red_p = sgr.segment_reduce_plain(pg, perm_p, bounds_p, n_payload)
+    e_red = column_err(name, "seg_reduce", red_k.T, red_p.T)
+    require(bool(torch.equal(red_k, red_p)), f"{name}: seg_reduce differs from its plain "
+            f"version (max abs err {e_red:.3e})")
+    require(bool(torch.equal(si.reduce_stream_grads(pg, m0, n_payload), red_k)),
+            f"{name}: reduce_stream_grads differs from its kernels")
+    return e_red, perm, bounds
+
+
+def compare_tiled_reduction(name, pg, isect, m0):
+    """gather_reduction (the seg_reduce kernel through rank_perm, written at
+    rank_src) against the plain version, bit for bit -> (max abs err,
+    plain ms)."""
+    import torch
+    from splat_one_tpu_torch.ops import intersect as itx
+    from splat_one_tpu_torch.ops import seg_reduce as sgr
+
+    got = itx.gather_reduction(pg, isect, m0)
+    want, plain_ms = timed_once(lambda: sgr.segment_reduce_plain(
+        pg, isect.rank_perm, isect.rank_bounds, itx.N_GROWS, out_index=isect.rank_src))
+    err = column_err(name, "seg_reduce (tiled)", got.T, want.T)
+    require(bool(torch.equal(got, want)), f"{name}: tiled seg_reduce differs from its "
+            f"plain version (max abs err {err:.3e})")
+    return err, plain_ms
 
 
 def oracle_grad_check(dev, impl="stream"):
@@ -908,7 +992,7 @@ def training_phase(dev, card, sc, max_err):
         step_times.append((time.perf_counter() - t0) * 1e3)
     counts = dict(cuda_build.launch_counts)
     log(f"  launch counts over 7 steps: {counts}")
-    for k in ("stream_fwd", "stream_bwd", "seg_reduce"):
+    for k in ("stream_fwd", "stream_bwd", "keyed_perm", "seg_reduce"):
         require(counts.get(k, 0) == 7, f"{k} launched {counts.get(k, 0)} times in 7 steps")
     require(not bool(info["overflow"]), "training step overflow")
     require(bool(torch.isfinite(loss)), "training step loss not finite")
@@ -947,7 +1031,7 @@ def training_phase(dev, card, sc, max_err):
 
     # per-layer split (CUDA events), the same computation as step()
     layers = {k: [] for k in ("projection fwd", "build + pack", "fwd kernel",
-                              "bwd kernel", "key sort", "seg_reduce kernel",
+                              "bwd kernel", "keyed_perm kernel", "seg_reduce kernel",
                               "projection bwd")}
     n_pay = si.GCOL_ABSDX
     for _ in range(5):
@@ -964,9 +1048,9 @@ def training_phase(dev, card, sc, max_err):
         ev[3].record()
         pg = sr.stream_bwd(cfg, isect.st_starts, isect.st_starts_al, packed, out, gout)
         ev[4].record()
-        rows, bounds = si.sort_grad_rows(pg, N)
+        perm, bounds = sgr.keyed_perm(pg, N)
         ev[5].record()
-        seg = sgr.segment_reduce_rows(rows, bounds, n_pay)
+        seg = sgr.segment_reduce_rows(pg, perm, bounds, n_pay)
         ev[6].record()
         col = lambda *c: seg[list(c)].T.reshape(1, N, len(c))
         cot = [col(si.GCOL_DX, si.GCOL_DY), col(si.GCOL_DCA, si.GCOL_DCB, si.GCOL_DCC),
@@ -1026,7 +1110,7 @@ def training_phase(dev, card, sc, max_err):
     e_a, _, *_ = compare_bwd("training 1M pinhole, absgrad",
                              dataclasses.replace(cfg, absgrad=True), st, st_al, packed,
                              out, gout, N)
-    e_b, e_r, pg_k, rows_k, bounds_k = compare_bwd(
+    e_b, e_r, pg_k, perm_k, bounds_k = compare_bwd(
         "training 1M pinhole", cfg, st, st_al, packed, out, gout, N)
     max_err["stream_bwd"] = max(max_err["stream_bwd"], e_a, e_b)
     max_err["seg_reduce"] = max(max_err["seg_reduce"], e_r)
@@ -1034,46 +1118,54 @@ def training_phase(dev, card, sc, max_err):
     bwd_abs_ms = cuda_ms(lambda: sr.stream_bwd(dataclasses.replace(cfg, absgrad=True), st,
                                                st_al, packed, out, gout), 10)
     bwd_plain_ms = cuda_ms(lambda: sr.stream_bwd_plain(cfg, st, st_al, packed, out, gout), 1)
-    red_ms = cuda_ms(lambda: sgr.segment_reduce_rows(rows_k, bounds_k, n_pay), 20)
-    red_plain_ms = cuda_ms(lambda: sgr.segment_reduce_plain(rows_k, bounds_k, n_pay), 3)
+
+    # the reduction from the backward's rows: the path (keyed_perm, then the
+    # indexed seg_reduce), each kernel, the plain versions, and the yardsticks:
+    # the keyed-row selection + index_add_ from the same rows (library_ms),
+    # index_add_ over rows already selected, the stable torch.sort of the
+    # key column that keyed_perm replaces, and the parent's composition
+    # (sort_grad_rows: that sort and a gather of every row)
     keys = pg_k[:, si.GCOL_KEY].long()
-    payload = pg_k[:, :n_pay].contiguous()
     keyed = keys > 0
-    keys_live, payload_live = keys[keyed] - 1, payload[keyed]
+    keys_live, payload_live = keys[keyed] - 1, pg_k[keyed, :n_pay]
+    key32 = pg_k[:, si.GCOL_KEY].to(torch.int32)
 
-    # the library yardstick (library_ms): one index_add_ over the keyed rows,
-    # unsorted, the rows the kernel reads; beside it index_add_ over every
-    # unsorted pad_cap row, where the unwritten key-0 rows all add into one
-    # row. End to end from the backward's rows: the key sort plus the kernel
-    # against the keyed-row selection plus index_add_.
     def library_reduce():
-        acc = torch.zeros((N, n_pay), device=dev)
-        return acc.index_add_(0, keys_live, payload_live)
-
-    def library_reduce_all():
-        acc = torch.zeros((N + 1, n_pay), device=dev)
-        return acc.index_add_(0, keys, payload)
-
-    def e2e_kernel():
-        rows, bounds = si.sort_grad_rows(pg_k, N)
-        return sgr.segment_reduce_rows(rows, bounds, n_pay)
-
-    def e2e_library():
         m = pg_k[:, si.GCOL_KEY] > 0
         acc = torch.zeros((N, n_pay), device=dev)
         return acc.index_add_(0, pg_k[m, si.GCOL_KEY].long() - 1, pg_k[m, :n_pay])
 
+    def library_selected():
+        acc = torch.zeros((N, n_pay), device=dev)
+        return acc.index_add_(0, keys_live, payload_live)
+
+    path_ms = cuda_ms(lambda: si.reduce_stream_grads(pg_k, N, n_pay), 20)
+    path_dev = device_ms(lambda: si.reduce_stream_grads(pg_k, N, n_pay), 20)
+    perm_ev = cuda_ms(lambda: sgr.keyed_perm(pg_k, N), 20)
+    red_ev = cuda_ms(lambda: sgr.segment_reduce_rows(pg_k, perm_k, bounds_k, n_pay), 20)
+    # the kernels' own device time: each is shorter than its wrapper's host work
+    perm_ms = device_ms(lambda: sgr.keyed_perm(pg_k, N), 20,
+                        KEYED_PERM_KERNELS) or perm_ev
+    red_ms = device_ms(lambda: sgr.segment_reduce_rows(pg_k, perm_k, bounds_k, n_pay), 20,
+                       ("seg_reduce_kernel",)) or red_ev
     lib_ms = cuda_ms(library_reduce, 20)
-    lib_all_ms = cuda_ms(library_reduce_all, 20)
-    e2e_k_ms = cuda_ms(e2e_kernel, 10)
-    e2e_l_ms = cuda_ms(e2e_library, 10)
-    red_ref = sgr.segment_reduce_rows(rows_k, bounds_k, n_pay)
+    lib_sel_ms = cuda_ms(library_selected, 20)
+    sort_ms = cuda_ms(lambda: torch.sort(key32, stable=True), 20)
+    copy_ms = cuda_ms(lambda: si.sort_grad_rows(pg_k, N), 10)
+    perm_p, bounds_p = sgr.keyed_perm_plain(pg_k, N)
+    perm_plain_ms = cuda_ms(lambda: sgr.keyed_perm_plain(pg_k, N), 3)
+    red_plain_ms = cuda_ms(lambda: sgr.segment_reduce_plain(pg_k, perm_p, bounds_p, n_pay), 3)
+    red_ref = si.reduce_stream_grads(pg_k, N, n_pay)
+    srt, bounds0 = si.sort_grad_rows(pg_k, N)
+    ident = torch.arange(srt.shape[0], dtype=torch.int32, device=dev)
+    require(bool(torch.equal(red_ref, sgr.segment_reduce_rows(srt, ident, bounds0, n_pay))),
+            "the reduction read in place differs from the sums over the sorted copy")
+    del srt, ident
     lib_diff = max(float((library_reduce().T - red_ref).abs().max()),
-                   float((library_reduce_all()[1:].T - red_ref).abs().max()),
-                   float((e2e_library().T - e2e_kernel()).abs().max()))
+                   float((library_selected().T - red_ref).abs().max()))
     # bounds count what this run's data needs: the chunks the tiles reached
     # (early termination leaves the rest of each stream unread and its
-    # gradient rows unwritten) and, for the reduce, the keyed rows
+    # gradient rows unwritten) and, for the reduction, the keyed rows
     pairs = gated_pairs(cfg, st, packed, out)
     starts = st.long()
     base0 = torch.div(starts[:-1], cfg.chunk, rounding_mode="floor") * cfg.chunk
@@ -1088,28 +1180,42 @@ def training_phase(dev, card, sc, max_err):
     bwd_ops_s = pairs * ops_per_pair / F32_OPS_PER_S
     bwd_bound = max(bwd_bytes / HBM_BYTES_PER_S, bwd_ops_s) * 1e3
     bwd_by = "bytes" if bwd_bytes / HBM_BYTES_PER_S >= bwd_ops_s else "operations"
-    n_keyed = int((pg_k[:, si.GCOL_KEY] > 0).sum())
-    # keyed rows' payload and the bounds read, the per-gaussian sums written
-    red_bytes = n_keyed * n_pay * 4 + (N + 1) * 4 + n_pay * N * 4
+    n_keyed = int(keyed.sum())
+    # keyed_perm: the key column read (4 B a row), bounds and the keyed rows'
+    # indices written; seg_reduce: the keyed rows' payload, their index
+    # entries and the bounds read, the per-gaussian sums written; the path:
+    # both, bounds and perm counted once as the kernel's output and input
+    perm_bytes = cfg.pad_cap * 4 + (N + 1) * 4 + n_keyed * 4
+    red_bytes = n_keyed * (n_pay + 1) * 4 + (N + 1) * 4 + n_pay * N * 4
+    path_bytes = cfg.pad_cap * 4 + n_keyed * n_pay * 4 + n_pay * N * 4
+    perm_bound = perm_bytes / HBM_BYTES_PER_S * 1e3
     red_bound = red_bytes / HBM_BYTES_PER_S * 1e3
+    path_bound = path_bytes / HBM_BYTES_PER_S * 1e3
     log(f"  stream_bwd at 1M/720p: {bwd_ms:.4f} ms (CUDA events, 10 launches; with "
         f"absgrad {bwd_abs_ms:.4f} ms); plain "
         f"version {bwd_plain_ms:.1f} ms; bound {bwd_bound:.4f} ms by {bwd_by} "
         f"({bwd_bytes / 1e6:.1f} MB over {n_chunks} chunks reached, {pairs / 1e6:.1f} M "
         f"pixel-slot pairs x {ops_per_pair} ops) | {card}")
-    log(f"  seg_reduce at 1M/720p: {red_ms:.4f} ms (CUDA events, 20 launches); plain "
-        f"version {red_plain_ms:.2f} ms; bound {red_bound:.4f} ms by bytes "
-        f"({red_bytes / 1e6:.1f} MB: {n_keyed} keyed rows of pad_cap {cfg.pad_cap}) "
-        f"| {card}")
-    log(f"  index_add_ over the {n_keyed} keyed rows (unsorted) {lib_ms:.4f} ms; over "
-        f"all {cfg.pad_cap} unsorted rows {lib_all_ms:.4f} ms; end to end from the "
-        f"backward's rows: key sort + seg_reduce kernel {e2e_k_ms:.4f} ms, keyed-row "
-        f"selection + index_add_ {e2e_l_ms:.4f} ms (CUDA events; max abs diff to the "
-        f"kernel {lib_diff:.2e}) | {card}")
-    del proj, psg, g_split, pg, rows, seg, pg_k, rows_k, payload, keys
-    del keyed, keys_live, payload_live, red_ref
+    log(f"  the stream reduction at 1M/720p from the backward's rows ({n_keyed} keyed of "
+        f"pad_cap {cfg.pad_cap}, {n_pay} columns): reduce_stream_grads {path_ms:.4f} ms "
+        f"(CUDA events, 20 calls; device busy {path_dev or float('nan'):.4f} ms a call), "
+        f"bound {path_bound:.4f} ms by bytes ({path_bytes / 1e6:.1f} MB), "
+        f"{path_bound / path_ms:.3f} of it | {card}")
+    log(f"  keyed_perm {perm_ms:.4f} ms (its kernels' device time, torch.profiler, 20 calls; "
+        f"CUDA events through the wrapper {perm_ev:.4f} ms), bound {perm_bound:.4f} ms "
+        f"({perm_bytes / 1e6:.1f} MB), plain {perm_plain_ms:.2f} ms, stable torch.sort of "
+        f"the key column {sort_ms:.4f} ms; seg_reduce {red_ms:.4f} ms (device time; CUDA "
+        f"events {red_ev:.4f} ms), bound {red_bound:.4f} ms ({red_bytes / 1e6:.1f} MB), "
+        f"{red_bound / red_ms:.3f} of it, plain {red_plain_ms:.2f} ms | {card}")
+    log(f"  yardsticks from the same rows: keyed-row selection + index_add_ {lib_ms:.4f} ms "
+        f"(the path {'at or under' if path_ms <= lib_ms else 'ABOVE'} it); index_add_ over "
+        f"the selected rows alone {lib_sel_ms:.4f} ms (max abs diff to the kernels "
+        f"{lib_diff:.2e}); the parent's sort_grad_rows (sort + gather of every row) "
+        f"{copy_ms:.4f} ms, its sums bit-equal to the path's | {card}")
+    del proj, psg, g_split, pg, seg, pg_k, perm_k, bounds_k, keys, key32
+    del keyed, keys_live, payload_live, red_ref, perm_p, bounds_p
     torch.cuda.empty_cache()
-    tile_bwd_row = tiled_step_phase(dev, card, leaves, vm, Kt, grads, max_err)
+    tile_bwd_row, tiled_red = tiled_step_phase(dev, card, leaves, vm, Kt, grads, max_err)
     sb_row = seg_broadcast_phase(dev, card, leaves, vm, Kt, proj0, caps)
     del grads, leaves
     torch.cuda.empty_cache()
@@ -1145,7 +1251,7 @@ def training_phase(dev, card, sc, max_err):
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"  launch counts on the training path ({TRAIN_STEPS} steps, 2 refines, "
             f"1 eval render): {tcounts}")
-        for k in ("stream_bwd", "seg_reduce"):
+        for k in ("stream_bwd", "keyed_perm", "seg_reduce"):
             require(tcounts.get(k, 0) == TRAIN_STEPS,
                     f"{k} launched {tcounts.get(k, 0)} times in {TRAIN_STEPS} steps")
         require(tcounts.get("stream_fwd", 0) >= TRAIN_STEPS, "stream_fwd launches")
@@ -1196,11 +1302,21 @@ def training_phase(dev, card, sc, max_err):
              launches=tcounts.get("stream_bwd", 0), max_abs_err=max_err["stream_bwd"],
              ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_bound, bound_by=bwd_by,
              library_ms=None),
+        # the stream reduction path from the backward's rows (keyed_perm, then
+        # this kernel); kernel_* the kernel alone, tiled_* its tiled launch
         dict(name="seg_reduce", route="cuda", source="splat_one_tpu_torch/csrc/seg_reduce.cu",
              replaces="splat_one_tpu/ops/seg_reduce.py:67",
              launches=tcounts.get("seg_reduce", 0), max_abs_err=max_err["seg_reduce"],
-             ms=red_ms, plain_ms=red_plain_ms, bound_ms=red_bound, bound_by="bytes",
-             library_ms=lib_ms),
+             ms=path_ms, plain_ms=perm_plain_ms + red_plain_ms, bound_ms=path_bound,
+             bound_by="bytes", library_ms=lib_ms, device_ms=path_dev, kernel_ms=red_ms,
+             kernel_events_ms=red_ev, kernel_bound_ms=red_bound,
+             library_selected_ms=lib_sel_ms,
+             tiled_launches=tiled_counts.get("seg_reduce", 0), **tiled_red),
+        dict(name="keyed_perm", route="cuda", source="splat_one_tpu_torch/csrc/keyed_perm.cu",
+             replaces="splat_one_tpu/ops/stream_isect.py:543",
+             launches=tcounts.get("keyed_perm", 0), max_abs_err=max_err["keyed_perm"],
+             ms=perm_ms, plain_ms=perm_plain_ms, bound_ms=perm_bound, bound_by="bytes",
+             library_ms=sort_ms, events_ms=perm_ev),
     ]}
 
 
@@ -1354,7 +1470,7 @@ def tiled_step_phase(dev, card, leaves, vm, Kt, grads_stream, max_err):
     counts = dict(cuda_build.launch_counts)
     for k in ("tile_fwd", "tile_bwd", "seg_reduce"):
         require(counts.get(k, 0) == 7, f"tiled step: {k} launched {counts.get(k, 0)} times")
-    require(not counts.get("stream_fwd") and not counts.get("stream_bwd"),
+    require(not any(counts.get(k) for k in ("stream_fwd", "stream_bwd", "keyed_perm")),
             f"tiled step launched a stream kernel: {counts}")
     require(not bool(info["overflow"]) and bool(torch.isfinite(loss)), "tiled step")
     rels = []
@@ -1383,7 +1499,6 @@ def tiled_step_phase(dev, card, leaves, vm, Kt, grads_stream, max_err):
     e_b, pg_k, plain_ms = compare_tile_bwd("tiled 1M pinhole step", cfg, st, packed, out, gout)
     max_err["tile_bwd"] = max(max_err["tile_bwd"], e_b)
     bwd_ms = cuda_ms(lambda: tr.tile_bwd(cfg, st, packed, out, gout), 10)
-    red_ms = cuda_ms(lambda: itx.gather_reduction(pg_k, isect, N), 10)
     n_chunks, pairs = tile_work(cfg, out)
     # replayed slot rows read and gradient rows written (64 B each),
     # fwd_out channels 0-5 and gout channels 0-4 read
@@ -1395,13 +1510,44 @@ def tiled_step_phase(dev, card, leaves, vm, Kt, grads_stream, max_err):
     log(f"  tile_bwd at 1M/720p: {bwd_ms:.4f} ms (CUDA events, 10 launches); plain version "
         f"{plain_ms:.1f} ms; bound {bound_ms:.4f} ms by {bound_by} ({n_chunks} chunks "
         f"replayed, {pairs / 1e6:.1f} M pixel-slot pairs x {ops_per_pair} ops, "
-        f"{bwd_bytes / 1e6:.1f} MB); abs err vs plain {e_b:.3e}; the per-gaussian "
-        f"reduction (row gather + seg_reduce + un-permute) {red_ms:.4f} ms | {card}")
+        f"{bwd_bytes / 1e6:.1f} MB); abs err vs plain {e_b:.3e} | {card}")
 
+    # the tiled reduction (one seg_reduce launch through rank_perm, written at
+    # rank_src) at these rows: vs plain, time, bound; beside it the live-slot
+    # selection + index_add_ from the same rows and the parent's row gather
+    e_r, red_plain_ms = compare_tiled_reduction("tiled 1M pinhole step", pg_k, isect, N)
+    max_err["seg_reduce"] = max(max_err["seg_reduce"], e_r)
+    red_ev = cuda_ms(lambda: itx.gather_reduction(pg_k, isect, N), 20)
+    red_ms = device_ms(lambda: itx.gather_reduction(pg_k, isect, N), 20,
+                       ("seg_reduce_kernel",)) or red_ev
+
+    def library():
+        live = isect.slot_rank < N
+        flat = isect.rank_src.long()[isect.slot_rank[live].long()]
+        acc = torch.zeros((N, itx.N_GROWS), device=dev)
+        return acc.index_add_(0, flat, pg_k[live, :itx.N_GROWS])
+
+    lib_ms = cuda_ms(library, 10)
+    lib_diff = float((library().T - itx.gather_reduction(pg_k, isect, N)).abs().max())
+    copy_ms = cuda_ms(lambda: pg_k[isect.rank_perm.long()], 5)
+    n_int = int(isect.rank_bounds[-1])
+    # the runs' payload and index entries, the bounds and rank_src read, the
+    # per-gaussian sums written
+    red_bytes = n_int * (itx.N_GROWS + 1) * 4 + (N + 1) * 4 + N * 4 + itx.N_GROWS * N * 4
+    red_bound = red_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  the tiled reduction at 1M/720p ({n_int} intersections, {itx.N_GROWS} columns): "
+        f"gather_reduction (one seg_reduce launch) {red_ms:.4f} ms (device time, 20 calls; "
+        f"CUDA events {red_ev:.4f} ms), bound {red_bound:.4f} ms by bytes ({red_bytes / 1e6:.1f} MB), "
+        f"{red_bound / red_ms:.3f} of it; plain version {red_plain_ms:.1f} ms; live-slot "
+        f"selection + index_add_ from the same rows {lib_ms:.4f} ms (max abs diff "
+        f"{lib_diff:.2e}); the parent's gather of every row by rank_perm alone "
+        f"{copy_ms:.4f} ms | {card}")
+    tiled_red = dict(tiled_ms=red_ms, tiled_events_ms=red_ev, tiled_bound_ms=red_bound,
+                     tiled_plain_ms=red_plain_ms, tiled_library_ms=lib_ms)
     return dict(name="tile_bwd", route="cuda", source="splat_one_tpu_torch/csrc/tile_bwd.cu",
                 replaces="splat_one_tpu/ops/tile_raster.py:221", max_abs_err=None,
                 ms=bwd_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None)
+                library_ms=None), tiled_red
 
 
 def seg_broadcast_phase(dev, card, leaves, vm, Kt, proj0, caps):
@@ -1436,41 +1582,54 @@ def seg_broadcast_phase(dev, card, leaves, vm, Kt, proj0, caps):
                 f"stream layout field {f} differs under SPLAT_SEG_BROADCAST=cond")
     log(f"  rasterization under cond: launch counts {counts}; every StreamIsect field "
         f"equal to the default build's (n_isect {int(want.n_isect)})")
-    prob = seg_broadcast_problem(proj0, W, H, "pinhole")
+    prob, grid = seg_broadcast_problem(proj0, W, H, "pinhole")
     exp_cap = caps.exp_cap
-    plain_ms, covered = compare_seg_broadcast("1M pinhole", prob, exp_cap, slab)
+    plain_ms, covered = compare_seg_broadcast("1M pinhole", prob, grid, exp_cap, slab)
     require(covered, "the observed window does not cover the 1M problem")
     okv, pbases, offs_pad = sgb.coverage_windows(prob[4], prob[6], exp_cap, slab)
-    table = sgb.parent_table(*prob[:6])
-    k_ms = cuda_ms(lambda: sgb.expand_parent_meta(table, offs_pad, pbases, slab), 20)
-    path_ms = cuda_ms(lambda: sgb.expand_meta_streamed(*prob, exp_cap, "kernel", slab), 10)
-    default_ms = cuda_ms(lambda: sgb.expand_meta_streamed(*prob, exp_cap, "xla"), 10)
-    mp = table.shape[0]
+    args = (*prob[:4], prob[5], offs_pad, pbases, exp_cap, grid, slab)
+    k_ev = cuda_ms(lambda: sgb.expand_parent_meta(*args), 20)
+    k_ms = device_ms(lambda: sgb.expand_parent_meta(*args), 20,
+                     ("seg_broadcast_kernel",)) or k_ev
+    # the whole expansion by each path, slot keys included, in turns
+    paths = {"kernel": [], "xla": []}
+    for which in ("kernel", "xla", "xla", "kernel"):
+        paths[which].append(cuda_ms(
+            lambda: sgb.expand_slots(*prob, exp_cap, grid, which, slab), 20))
+    path_ms, default_ms = (statistics.mean(paths[w]) for w in ("kernel", "xla"))
+    mp = prob[0].shape[0]
     n_isect = int(want.n_isect)
     parents = torch.arange(mp, device=dev)
 
-    def library():  # one PyTorch call for the slot -> parent map, one row gather
-        g = torch.repeat_interleave(parents, prob[6], output_size=n_isect)
-        return table[g]
+    def library():  # one PyTorch call for the slot -> parent map
+        return torch.repeat_interleave(parents, prob[6], output_size=n_isect)
 
     lib_ms = cuda_ms(library, 10)
-    m_k = sgb.expand_parent_meta(table, offs_pad, pbases, slab)
-    require(bool(torch.equal(library()[:, :6].T, m_k[:6, :n_isect])),
+    _, g_k = sgb.expand_parent_meta(*args)
+    require(bool(torch.equal(library(), g_k[:n_isect].long())),
             "repeat_interleave expansion differs from the kernel's")
     nb = pbases.shape[0]
-    sb_bytes = nb * (slab + 1) * 4 + sgb.N_OUT * 4 * nb * sgb.CH
+    # the parents' four int64 columns, depth and offset read, pbases read,
+    # the 8-byte key and 4-byte owner of every slot written
+    sb_bytes = mp * (4 * 8 + 4 + 4) + nb * 4 + nb * sgb.CH * 12
     bound_ms = sb_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"  seg_broadcast at 1M/720p: {k_ms:.4f} ms (CUDA events, 20 launches; with the "
-        f"parent table and int64 columns {path_ms:.4f} ms); plain version {plain_ms:.1f} ms; "
-        f"bound {bound_ms:.4f} ms by bytes ({sb_bytes / 1e6:.1f} MB: {nb} windows of "
-        f"{slab + 1} offsets, 7 x 4 B per slot); the default index_add_ + cumsum + gather "
-        f"expansion {default_ms:.4f} ms; repeat_interleave + row gather {lib_ms:.4f} ms "
-        f"| {card}")
+    log(f"  seg_broadcast at 1M/720p: {k_ms:.4f} ms (device time, 20 launches; CUDA events "
+        f"through the wrapper {k_ev:.4f} ms); plain "
+        f"version {plain_ms:.1f} ms; bound {bound_ms:.4f} ms by bytes ({sb_bytes / 1e6:.1f} "
+        f"MB: {mp} parents' columns, {nb} x {sgb.CH} slots' keys and owners), "
+        f"{bound_ms / k_ms:.3f} of it; repeat_interleave (the slot -> parent map alone) "
+        f"{lib_ms:.4f} ms | {card}")
+    log(f"  the expansion with the slots' sort keys, in turns (20 calls each): kernel path "
+        f"(windows + kernel) {', '.join(f'{x:.4f}' for x in paths['kernel'])} ms; default "
+        f"path (index_add_ + cumsum + gathers + decode) "
+        f"{', '.join(f'{x:.4f}' for x in paths['xla'])} ms; the kernel path "
+        f"{'no slower than' if path_ms <= default_ms else 'SLOWER than'} the default | {card}")
     return dict(name="seg_broadcast", route="cuda",
                 source="splat_one_tpu_torch/csrc/seg_broadcast.cu",
                 replaces="splat_one_tpu/ops/seg_broadcast.py:73",
                 launches=counts.get("seg_broadcast", 0), max_abs_err=0.0, ms=k_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms,
+                events_ms=k_ev, path_ms=path_ms, default_path_ms=default_ms)
 
 
 def tiled_trainer_phase(dev, card, scene, first_loss):
@@ -1510,7 +1669,7 @@ def tiled_trainer_phase(dev, card, scene, first_loss):
         for k, n in (("tile_fwd", TILED_STEPS + 1), ("tile_bwd", TILED_STEPS),
                      ("seg_reduce", TILED_STEPS)):
             require(counts.get(k, 0) == n, f"{k} launched {counts.get(k, 0)} times, not {n}")
-        require(not any(counts.get(k) for k in ("stream_fwd", "stream_bwd")),
+        require(not any(counts.get(k) for k in ("stream_fwd", "stream_bwd", "keyed_perm")),
                 f"the tiled Trainer launched a stream kernel: {counts}")
         losses = [h["loss"] for h in hist]
         n_gs = [h["num_GS"] for h in hist]
@@ -1619,7 +1778,8 @@ def main():
         cuda_build.library(name)
 
     # phase 3: kernels vs plain versions, and vs the oracle
-    log("phase 3: stream_fwd, stream_bwd and seg_reduce kernels vs plain versions")
+    log("phase 3: stream_fwd, stream_bwd, keyed_perm and seg_reduce kernels vs plain "
+        "versions")
     scenes = {
         "pinhole": stream_scene(),
         "spherical": stream_scene(spherical=True),
@@ -1630,8 +1790,8 @@ def main():
         "100k 640x480": bench_scene(100_000, 640, 480, 500.0, -5.5, -4.0, seed=1),
     }
     # kernel vs plain max abs err, over every comparison of this run
-    max_err = {k: 0.0 for k in ("stream_fwd", "stream_bwd", "seg_reduce", "tile_fwd",
-                                "tile_bwd", "seg_broadcast")}
+    max_err = {k: 0.0 for k in ("stream_fwd", "stream_bwd", "seg_reduce", "keyed_perm",
+                                "tile_fwd", "tile_bwd", "seg_broadcast")}
     for i, (name, sc) in enumerate(scenes.items()):
         cfg, st, packed, isect = stream_inputs(sc, dev)
         e, out_k, _ = compare_fwd(name, cfg, st, packed)
@@ -1694,7 +1854,7 @@ def main():
     require(counts.get("stream_fwd", 0) == n_renders,
             f"stream_fwd launched {counts.get('stream_fwd', 0)} times "
             f"for {n_renders} renders")
-    require(not counts.get("stream_bwd") and not counts.get("seg_reduce"),
+    require(not any(counts.get(k) for k in ("stream_bwd", "keyed_perm", "seg_reduce")),
             "serving launched a backward kernel")
     for (name, _, cm), (rgb, depth, a, info) in zip(requests, outputs):
         require(tuple(rgb.shape) == (H_SERVE, W_SERVE, 3), f"{name}: rgb shape")

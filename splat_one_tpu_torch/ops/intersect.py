@@ -17,7 +17,8 @@ Spherical cameras wrap in azimuth: unwrapped spans, tile x ``mod TW``.
 
 The integer outputs equal the JAX package's bit for bit. The gradient
 reduction sums each gaussian's slot rows exactly with the segmented
-reduce (``ops.seg_reduce``) instead of the JAX package's cumsum and
+reduce (``ops.seg_reduce``, reading the rows in place through
+``rank_perm``) instead of the JAX package's row gather, cumsum and
 boundary difference. The tile-sharded path (``tile_lo`` /
 ``n_tiles_local``) belongs to the multi-GPU slice and raises.
 """
@@ -268,13 +269,12 @@ def gather_reduction(pgrads: torch.Tensor, isect: IsectData,
     """Per-slot gradient rows [align_cap, NF] -> per-gaussian sums
     [N_GROWS, num_flat] in flat [C*N] order (``GROW_*`` row order).
 
-    The rows are gathered into by-gaussian order (``rank_perm``), each
-    gaussian's run ``[rank_bounds[r], rank_bounds[r + 1])`` is summed
-    front to back by the segmented reduce (``ops.seg_reduce``: a kernel on
-    CUDA, exact and deterministic), and the depth ranks are mapped back
-    through ``rank_src``."""
-    rows = pgrads[isect.rank_perm.long()]
-    per_rank = seg_reduce.segment_reduce_rows(rows, isect.rank_bounds, N_GROWS)
-    out = per_rank.new_empty((N_GROWS, num_flat))
-    out[:, isect.rank_src.long()] = per_rank
-    return out
+    The segmented reduce (``ops.seg_reduce``: a kernel on CUDA, exact and
+    deterministic) reads each depth rank's rows where the backward wrote
+    them, through the layout's own int32 index: rank r's run
+    ``rank_perm[rank_bounds[r] .. rank_bounds[r + 1])``, summed front to
+    back, lands at the flat index ``rank_src[r]``. No row is copied and no
+    index is widened: the same bits as gathering the rows by ``rank_perm``,
+    reducing the sorted copy and scattering through ``rank_src``."""
+    return seg_reduce.segment_reduce_rows(pgrads, isect.rank_perm, isect.rank_bounds,
+                                          N_GROWS, out_index=isect.rank_src)

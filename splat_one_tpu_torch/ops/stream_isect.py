@@ -5,16 +5,17 @@ into 32x32 px supertiles (2x2 tiles of 16 px); the compositing kernels
 stream each supertile's depth-sorted slot range once and gate every
 slot per 16 px tile. Pipeline:
   1. per-(camera, gaussian) supertile bbox spans -> counts -> offsets,
-  2. expansion to slots (ops.seg_broadcast: the default path, or the
-     kernel under ``SPLAT_SEG_BROADCAST``) and the slots' supertile ids,
+  2. expansion to slots and each slot's (supertile id, depth) sort key
+     (ops.seg_broadcast: the default path, or the kernel under
+     ``SPLAT_SEG_BROADCAST``),
   3. one stable sort by (supertile, depth), ties in expansion order,
   4. searchsorted for per-supertile slot ranges.
 Spherical cameras wrap in azimuth: unwrapped spans, ``mod sw`` at
 expansion. Slots are indexed with integers, so the JAX package's f32-id
 limit (C*N < 2^24) does not apply to the forward; the f32 ``COL_GID``
 column keeps that limit for the backward, whose per-slot gradient rows
-(``GCOL_*``) ``reduce_stream_grads`` sorts by that key and reduces per
-gaussian (``ops.seg_reduce``).
+(``GCOL_*``) ``reduce_stream_grads`` orders by that key and reduces per
+gaussian in place (``ops.seg_reduce``).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 
 from splat_one_tpu_torch.ops import seg_reduce
 from splat_one_tpu_torch.ops.projection import Projected, conic_ellipse_radii
-from splat_one_tpu_torch.ops.seg_broadcast import (SLAB, expand_meta_streamed,
+from splat_one_tpu_torch.ops.seg_broadcast import (SLAB, SlotGrid, expand_slots,
                                                    required_slab)
 
 # Supertile = SS x SS tiles of `tile_size` pixels.
@@ -258,28 +259,15 @@ def build_stream_intersections(
     n_isect = offsets[-1] + counts[-1]
     overflow = n_isect > EXP
 
-    sx0_s, sy0_s, span_s, kA_s, off_s, depth_s, g_of_s = expand_meta_streamed(
+    # each slot's (supertile id | f32 bits of the depth) key: live depths are
+    # positive, so their bit patterns order like their values; slots past
+    # the total carry id CS and sort last
+    key, g_of_s = expand_slots(
         sx0, sy0, span_p, kA, offsets, proj.depths.reshape(M0), counts, EXP,
+        SlotGrid(n=N, sw=sw, ns=NS, cs=CS, wrap=camera_model == "spherical"),
         slab=caps.sb_slab)
-    slot_ids = torch.arange(EXP, dtype=torch.int64, device=dev)
-    slot_ok = slot_ids < torch.clamp(n_isect, max=EXP)
-    local = slot_ids - off_s + kA_s
-    lx = torch.remainder(local, span_s)
-    ly = torch.div(local, span_s, rounding_mode="floor")
-    st_x = sx0_s + lx
-    if camera_model == "spherical":
-        st_x = torch.remainder(st_x, sw)
-    st_y = sy0_s + ly
-    cam = torch.div(g_of_s, N, rounding_mode="floor")
-    st_id = cam * NS + st_y * sw + st_x
-    st_id = torch.where(slot_ok, st_id, torch.full_like(st_id, CS))
-
-    # One stable sort on an exact int64 key (supertile id | f32 bits of the
-    # depth): live depths are positive, so their bit patterns order like
-    # their values, and ties keep expansion order as the JAX package's
-    # stable two-key sort does. Dropped slots carry id CS and sort last.
-    dbits = depth_s.contiguous().view(torch.int32).long() & 0xFFFFFFFF
-    key = (st_id << 32) | dbits
+    # one stable sort on that exact int64 key: ties keep expansion order, as
+    # the JAX package's stable two-key sort does
     sorted_key, order = torch.sort(key, stable=True)
     sorted_st = sorted_key >> 32
     sorted_g = g_of_s[order]
@@ -292,8 +280,8 @@ def build_stream_intersections(
     counts_al = -torch.div(-(lead + st_counts), G, rounding_mode="floor") * G
     st_starts_al = torch.cat([counts_al.new_zeros(1), torch.cumsum(counts_al, 0)])
 
-    n_slots = torch.sum(slot_ok.long())
-    sorted_ok = slot_ids < n_slots
+    n_slots = torch.clamp(n_isect, max=EXP)
+    sorted_ok = torch.arange(EXP, dtype=torch.int64, device=dev) < n_slots
     return StreamIsect(
         sorted_g=torch.where(sorted_ok, sorted_g, torch.full_like(sorted_g, M0)).int(),
         st_starts=st_starts.int(),
@@ -305,28 +293,37 @@ def build_stream_intersections(
 
 
 def sort_grad_rows(pgrads: torch.Tensor, num_flat: int):
-    """Bring each gaussian's gradient rows together: one stable sort of
+    """The plain composition the reduction replaces: one stable sort of
     ``pgrads`` [pad_cap, NF] by its key column (``GCOL_KEY``, gid + 1;
-    unwritten rows hold 0 and sort to the front) -> ``(rows, bounds)``,
-    the sorted rows and the start of each gaussian's run, [num_flat + 1]
-    int32. Within a run the rows keep their stream order."""
+    unwritten rows hold 0 and sort to the front) and a gather of every row
+    -> ``(rows, bounds)``, the sorted rows and the start of each gaussian's
+    run, [num_flat + 1] int32. Within a run the rows keep their stream
+    order. ``reduce_stream_grads`` reads the same runs in place."""
+    _check_key_range(num_flat)
+    order, bounds = seg_reduce.stable_key_order(pgrads[:, GCOL_KEY].to(torch.int32),
+                                                num_flat)
+    return pgrads[order], bounds
+
+
+def _check_key_range(num_flat: int):
     if num_flat + 1 >= 1 << 24:
         raise ValueError(f"{num_flat} (camera, gaussian) pairs: the f32 gid key "
                          "is exact only below 2^24")
-    keys = pgrads[:, GCOL_KEY].to(torch.int32)
-    sorted_keys, order = torch.sort(keys, stable=True)
-    queries = torch.arange(1, num_flat + 2, dtype=torch.int32, device=keys.device)
-    bounds = torch.searchsorted(sorted_keys, queries, out_int32=True)
-    return pgrads[order], bounds
 
 
 def reduce_stream_grads(pgrads: torch.Tensor, num_flat: int,
                         n_payload: int = N_GCOLS) -> torch.Tensor:
-    """Per-slot -> per-gaussian gradient reduction: ``sort_grad_rows``,
-    then the segmented reduce (``ops.seg_reduce``) of the leading
-    ``n_payload`` columns (10 skips ABSDX/ABSDY when absgrad is off).
-    Output ``[n_payload, num_flat]`` in flat [C*N] order, GCOL row order.
-    The JAX package's bf16x2 packing of the rows (a TPU sort-payload
-    trick) is not part of the port."""
-    rows, bounds = sort_grad_rows(pgrads, num_flat)
-    return seg_reduce.segment_reduce_rows(rows, bounds, n_payload)
+    """Per-slot -> per-gaussian gradient reduction of the backward's rows
+    ``pgrads`` [pad_cap, NF] where they lie: ``seg_reduce.keyed_perm``
+    orders the keyed rows (key > 0) by gaussian and, within a gaussian, in
+    stream order, and ``seg_reduce.segment_reduce_rows`` sums each
+    gaussian's rows in that order, over the leading ``n_payload`` columns
+    (10 skips ABSDX/ABSDY when absgrad is off). Output ``[n_payload,
+    num_flat]`` in flat [C*N] order, GCOL row order, bit-identical to
+    ``sort_grad_rows`` + the same sums over the sorted copy. On CUDA
+    tensors nothing is read back by the host. The JAX package's bf16x2
+    packing of the rows (a TPU sort-payload trick) is not part of the
+    port."""
+    _check_key_range(num_flat)
+    perm, bounds = seg_reduce.keyed_perm(pgrads, num_flat)
+    return seg_reduce.segment_reduce_rows(pgrads, perm, bounds, n_payload)

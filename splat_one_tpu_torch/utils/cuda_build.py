@@ -44,15 +44,18 @@ SIGNATURES = {
     # st_starts, st_starts_al, packed, fwd_out, gout, pgrad, cs, sw, sh, tw,
     # wrap_x, width, inv_width, absgrad, stream
     "stream_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P],
-    # rows, bounds, out, m0, n_payload, stream
-    "seg_reduce": [_P, _P, _P, _I, _I, _P],
+    # rows, perm, bounds, out_index (or NULL), out, m0, n_payload, stream
+    "seg_reduce": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # rows, cap, m0, cnt_n, tot, list, perm_u, perm, bounds, stream
+    "keyed_perm": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     # starts, packed, out, ct, tw, tiles_per_cam, wrap_x, width, inv_width, stream
     "tile_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     # starts, packed, fwd_out, gout, pgrad, ct, tw, tiles_per_cam, wrap_x,
     # width, inv_width, stream
     "tile_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
-    # pbases, offs_pad, table, out, nb, mp, slab, stream
-    "seg_broadcast": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # pbases, offs_pad, sx0, sy0, span, ka, depth, key, g, nb, mp, slab,
+    # exp_cap, n, sw, ns, cs, wrap, stream
+    "seg_broadcast": [_P] * 9 + [_I] * 9 + [_P],
 }
 
 launch_counts: collections.Counter = collections.Counter()

@@ -6,8 +6,9 @@
   column's max |value| (the JAX kernel forms in-chunk prefixes with
   doubling networks, the port serially, and the suffix term
   ``godot - gP - prefix`` cancels), the key column exactly equal.
-- ``segment_reduce_plain`` and ``reduce_stream_grads`` against the JAX
-  ``segment_reduce_rows`` / ``reduce_stream_grads``: within 2^-15
+- ``segment_reduce_plain`` (on the key-sorted rows, and on the rows in
+  place through ``keyed_perm``) and ``reduce_stream_grads`` against the
+  JAX ``segment_reduce_rows`` / ``reduce_stream_grads``: within 2^-15
   relative of each column's max, because the JAX CPU path splits f32 into
   two bf16 parts (``NSPLIT = 2``, ``seg_reduce.py:48``).
 - The CUDA kernels against their plain versions (``gpu`` marker, run on
@@ -115,8 +116,15 @@ def test_reduce_matches_jax(n_payload):
     parts = [jnp.asarray(srt[:, c].numpy()) for c in range(n_payload)]
     want2 = np.asarray(jsr_reduce.segment_reduce_rows(
         parts + [jnp.asarray(keys)], jnp.asarray(blk.astype(np.int32)), m0))[:, :m0]
-    got2 = tsr_reduce.segment_reduce_plain(srt, bounds, n_payload).numpy()
+    ident = torch.arange(srt.shape[0], dtype=torch.int32)
+    got2 = tsr_reduce.segment_reduce_plain(srt, ident, bounds, n_payload).numpy()
     assert (_col_rel(got2.T, want2.T) < 2.0 ** -15).all()
+    # the same sums read in place, through the stable order of the keyed rows
+    perm, kbounds = tsr_reduce.keyed_perm(torch.as_tensor(rows), m0)
+    np.testing.assert_array_equal(kbounds.numpy(), bounds.numpy() - bounds.numpy()[0])
+    in_place = tsr_reduce.segment_reduce_plain(torch.as_tensor(rows), perm, kbounds,
+                                               n_payload).numpy()
+    np.testing.assert_array_equal(in_place, got2)
     # runs are summed front to back in stream order
     m = 7
     run = srt[bounds[m - 1]:bounds[m], :n_payload]
@@ -127,9 +135,9 @@ def test_reduce_matches_jax(n_payload):
 
 
 def test_seg_reduce_rejects_other_devices():
+    idx = torch.zeros(3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
-        tsr_reduce.segment_reduce_rows(torch.zeros((8, tsi.NF), device="meta"),
-                                       torch.zeros(3, dtype=torch.int32, device="meta"),
+        tsr_reduce.segment_reduce_rows(torch.zeros((8, tsi.NF), device="meta"), idx, idx,
                                        tsi.N_GCOLS)
 
 
@@ -170,10 +178,14 @@ def test_cuda_backward_matches_plain(case, absgrad):
 def test_cuda_reduce_matches_plain(n_payload):
     _gpu()
     m0 = 900
-    srt, bounds = tsi.sort_grad_rows(torch.as_tensor(_key_rows(3, m0=m0), device="cuda"), m0)
+    rows = torch.as_tensor(_key_rows(3, m0=m0), device="cuda")
+    srt, bounds = tsi.sort_grad_rows(rows, m0)
     n0 = cuda_build.launch_counts["seg_reduce"]
-    got = tsr_reduce.segment_reduce_rows(srt, bounds, n_payload)
+    ident = torch.arange(srt.shape[0], dtype=torch.int32, device="cuda")
+    got = tsr_reduce.segment_reduce_rows(srt, ident, bounds, n_payload)
     assert cuda_build.launch_counts["seg_reduce"] == n0 + 1
-    want = tsr_reduce.segment_reduce_plain(srt, bounds, n_payload)
+    want = tsr_reduce.segment_reduce_plain(srt, ident, bounds, n_payload)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    # read in place, the same bits as over the sorted copy
+    assert torch.equal(tsi.reduce_stream_grads(rows, m0, n_payload), got)
