@@ -57,14 +57,37 @@ Phases (any failure exits non-zero and prints no result line):
      raster_impl="tiled", 4 steps and a refine, its first loss against
      (b)'s; (d) make_synthetic_scene on the card (its defaults, the
      surface rings, spherical), its tiled GT against the stream render;
+     (e) the train stage from a workdir, through its entry points: a
+     workdir written at full width (reconstruction.json with one 1280x720
+     perspective camera, 24 ring shots, a reference_lla and the 200k GT
+     means as points; images/ rendered by the port from that GT), then
+     (i) app.pipeline.train_splats in process (capacity 1,048,576, SH 3,
+     40 steps with refines at 10, 20, 30, a reset at 25, a save and an
+     eval: the stream kernels' launches, the losses read back from tb/
+     falling, the checkpoint and stats); (ii) to_scene_data(streaming=True):
+     the decoder that ran, its images against the in-RAM ones, a 3-step
+     Trainer on it with the in-RAM first loss; (iii) `python -m
+     splat_one_tpu_torch.app.cli train <wd> --ckpt <npz> --compression
+     png` in a subprocess: its val stats, the 52 trajectory frames
+     (RGB | depth, 2560x720) and the compressed planes with their stats;
+     (iv) `... app.cli viewer <wd> --port <p>` in a subprocess: GET / and
+     three /render requests (two pinhole, one spherical), each a
+     1280x720 JPEG, timed, then the process stopped; (v) the options at
+     the same capacity, 6 steps with refines each: (a) pose_opt +
+     bilateral grid + depth loss on sparse_depth_map depths (cc_psnr),
+     (b) app_opt, (c) MCMCStrategyCfg's defaults refining from step 0
+     every 3 (n_relocated, n_grown): finite losses, a checkpoint that loads
+     back equal, peak memory; (vi) each part's wall time;
   6. the kernels line (JSON; the forward rows also carry spherical_ms and
      spherical_bound_ms; the seg_reduce row is the stream reduction path,
      with its kernel's and its tiled launch's figures beside), then the
-     card line, then the result line.
+     card line, then the result line. Each row also carries
+     stage_launches, its launches in phase 5e (i).
 """
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -74,6 +97,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 
@@ -93,6 +118,7 @@ N_SERVE, W_SERVE, H_SERVE, SH_SERVE = 1_000_000, 1280, 720, 3
 N_GT, N_VIEWS, TRAIN_STEPS = 200_000, 8, 6
 TRAIN_CAPACITY = 1_048_576  # the Trainers' splat buffers (phases 5b, 5c)
 TILED_STEPS = 4  # phase 5c
+WD_SHOTS, WD_STEPS = 24, 40  # phase 5e: the workdir's shots, train_splats' steps
 REL_RENDER, REL_GRAD = 1e-5, 5e-4  # stream vs tiled (tests/test_stream_raster.py)
 NO_SPILL = ("stream_fwd", "stream_bwd", "tile_fwd", "tile_bwd")  # held to 0 B of spill
 
@@ -1738,6 +1764,442 @@ def synthetic_phase(dev, card):
             f"launches {counts}")
 
 
+# ------------------------------------------------- phase 5e: the train stage
+def _varint(buf, i):
+    v = shift = 0
+    while True:
+        b = buf[i]
+        i += 1
+        v |= (b & 0x7F) << shift
+        shift += 7
+        if b < 0x80:
+            return v, i
+
+
+def _pb_fields(buf):
+    """[(field, value)] of a protobuf message (varint, 64-bit, bytes, 32-bit)."""
+    out, i = [], 0
+    while i < len(buf):
+        key, i = _varint(buf, i)
+        wire = key & 7
+        if wire == 0:
+            v, i = _varint(buf, i)
+        elif wire == 2:
+            n, i = _varint(buf, i)
+            v, i = buf[i:i + n], i + n
+        else:
+            n = 8 if wire == 1 else 4
+            v, i = buf[i:i + n], i + n
+        out.append((key >> 3, v))
+    return out
+
+
+def tb_scalars(tb_dir, tag):
+    """[(step, value)] of the scalar ``tag`` in the TensorBoard event files
+    under ``tb_dir`` (TFRecord framing; Event.step = field 2, Event.summary
+    = 5, Summary.value = 1, Value.tag = 1, Value.simple_value = 2)."""
+    import struct
+
+    out = []
+    for name in sorted(os.listdir(tb_dir)):
+        with open(os.path.join(tb_dir, name), "rb") as fh:
+            raw = fh.read()
+        pos = 0
+        while pos + 12 <= len(raw):
+            n = struct.unpack("<Q", raw[pos:pos + 8])[0]
+            event = dict(_pb_fields(raw[pos + 12:pos + 12 + n]))
+            pos += 16 + n
+            for f, val in _pb_fields(event.get(5, b"")):
+                fields = dict(_pb_fields(val))
+                if f == 1 and fields.get(1) == tag.encode():
+                    out.append((event[2], struct.unpack("<f", fields[2])[0]))
+    return out
+
+
+def write_workdir(dev, wd):
+    """Phase 5e's workdir at full width: ``reconstruction.json`` (one
+    perspective camera W_SERVE x H_SERVE, k1 = k2 = 0; WD_SHOTS shots on
+    a ring; a reference_lla; the N_GT means of make_gt_gaussians(N_GT,
+    seed=0) with their DC colours as uint8) and ``images/<shot>.png``,
+    each rendered by the port from that GT at its shot's pose. Returns the
+    seconds of the renders and of the PNG writes."""
+    import torch
+    from PIL import Image
+    from scipy.spatial.transform import Rotation
+    from splat_one_tpu_torch.core.sh import rgb_to_sh
+    from splat_one_tpu_torch.core.transforms import invert_se3
+    from splat_one_tpu_torch.data.opensfm import Parser
+    from splat_one_tpu_torch.data.synthetic import make_gt_gaussians, ring_cameras
+    from splat_one_tpu_torch.ops.projection import project_gaussians
+    from splat_one_tpu_torch.render.rasterization import rasterization
+
+    W, H = W_SERVE, H_SERVE
+    os.makedirs(os.path.join(wd, "images"))
+    means, quats, scales, opac, rgb = make_gt_gaussians(N_GT, seed=0)
+    c2ws, Ks = ring_cameras(WD_SHOTS, 3.0, -0.8, 60.0, W, H)
+    shots = {}
+    for i, c2w in enumerate(c2ws):
+        w2c = np.linalg.inv(c2w)
+        shots[f"shot_{i:03d}.png"] = {
+            "rotation": Rotation.from_matrix(w2c[:3, :3]).as_rotvec().tolist(),
+            "translation": w2c[:3, 3].tolist(), "camera": "cam0"}
+    colors = np.round(np.clip(rgb, 0, 1) * 255).astype(int)
+    rec = {"cameras": {"cam0": {"projection_type": "perspective", "width": W, "height": H,
+                                "focal": float(Ks[0, 0, 0]) / max(W, H),
+                                "k1": 0.0, "k2": 0.0}},
+           "shots": shots,
+           "points": {str(i): {"coordinates": means[i].tolist(), "color": colors[i].tolist()}
+                      for i in range(N_GT)},
+           "reference_lla": {"latitude": 47.3769, "longitude": 8.5417, "altitude": 408.0}}
+    with open(os.path.join(wd, "reconstruction.json"), "w") as fh:
+        json.dump([rec], fh)
+    p = Parser(wd, normalize=False)  # the GT's frame, the Ks the Trainer reads
+    t = lambda x: torch.as_tensor(x, device=dev)
+    g = [t(x) for x in (means, quats, scales, opac)]
+    sh0 = rgb_to_sh(t(rgb))[:, None, :]
+    t_render = t_png = 0.0
+    with torch.no_grad():
+        for i, name in enumerate(p.image_names):
+            t0 = time.perf_counter()
+            vm, K = invert_se3(t(p.camtoworlds[i:i + 1])), t(p.Ks[i:i + 1])
+            proj = project_gaussians(*g, vm, K, W, H, colors=t(rgb))
+            out, _, info = rasterization(*g, sh0, vm, K, W, H, sh_degree=0,
+                                         caps=bench_caps(proj, W, H))
+            require(not bool(info["overflow"]), f"workdir GT render {name} overflows")
+            img = (torch.clamp(out[0], 0, 1) * 255).round().to(torch.uint8).cpu().numpy()
+            t1 = time.perf_counter()
+            Image.fromarray(img).save(os.path.join(wd, "images", name), compress_level=1)
+            t_render += t1 - t0
+            t_png += time.perf_counter() - t1
+    return t_render, t_png
+
+
+def _peak_gib(dev):
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
+
+
+def _reset_peak(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _states_equal(a, b):
+    """Every tensor of two TrainStates equal (shapes, dtypes, values)."""
+    import torch
+
+    def leaves(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        if isinstance(x, dict):
+            return [v for k in sorted(x) for v in leaves(x[k])]
+        if isinstance(x, tuple):
+            return [v for y in x for v in leaves(y)]
+        return [] if x is None else [torch.as_tensor(x)]
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+        for x, y in zip(la, lb))
+
+
+def train_stage_phase(dev, card):
+    """Phase 5e (see the module docstring): the train stage from a workdir
+    through its entry points. Returns the launch counts of part (i)."""
+    import torch
+    from PIL import Image
+    from splat_one_tpu_torch.app.pipeline import train_splats
+    from splat_one_tpu_torch.data.depth_supervision import sparse_depth_map
+    from splat_one_tpu_torch.data.opensfm import Parser, to_scene_data
+    from splat_one_tpu_torch.train.config import Config
+    from splat_one_tpu_torch.train.strategy import DefaultStrategyCfg, MCMCStrategyCfg
+    from splat_one_tpu_torch.train.trainer import Trainer
+    from splat_one_tpu_torch.utils import cuda_build
+
+    import PIL
+    import scipy
+
+    W, H = W_SERVE, H_SERVE
+    t_phase = time.perf_counter()
+    log(f"phase 5e: the train stage from a workdir: {WD_SHOTS} shots {W}x{H}, {N_GT} SfM "
+        f"points (the GT's means), SH 3, {WD_STEPS} steps | {card}")
+    log(f"  the host's tools: Python {sys.version.split()[0]}, Pillow {PIL.__version__}, "
+        f"scipy {scipy.__version__}, g++ {shutil.which('g++')}, ffmpeg "
+        f"{shutil.which('ffmpeg')} (render_traj writes an mp4 only with ffmpeg)")
+    walls = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_wd_")
+    wd = os.path.join(tmp, "work")
+    res = os.path.join(wd, "results")
+    try:
+        t0 = time.perf_counter()
+        t_render, t_png = write_workdir(dev, wd)
+        walls["workdir"] = time.perf_counter() - t0
+        log(f"  workdir written: GT renders {t_render:.2f} s, PNG writes {t_png:.2f} s, "
+            f"reconstruction.json {os.path.getsize(os.path.join(wd, 'reconstruction.json'))} B")
+
+        # (i) train_splats in process
+        cfg = Config(
+            sh_degree=3, sh_degree_interval=10, max_steps=WD_STEPS, eval_steps=[WD_STEPS],
+            save_steps=[WD_STEPS], tb_every=1, test_every=8,
+            strategy=DefaultStrategyCfg(refine_start_iter=5, refine_stop_iter=30,
+                                        refine_every=10, reset_every=25))
+        _reset_peak(dev)
+        cuda_build.launch_counts.clear()
+        t0 = time.perf_counter()
+        trainer, hist = train_splats(wd, cfg, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        walls["train_splats"] = time.perf_counter() - t0
+        counts = dict(cuda_build.launch_counts)
+        n_val = len(trainer.val_idx)
+        num_gs = [v for _, v in tb_scalars(os.path.join(res, "tb"), "train/num_GS")]
+        # the capacity of 4 x the points; doubled only past 0.9 full
+        require(trainer.capacity == TRAIN_CAPACITY
+                or (trainer.capacity == 2 * TRAIN_CAPACITY
+                    and max(num_gs) > 0.9 * TRAIN_CAPACITY),
+                f"train_splats capacity {trainer.capacity}, not {TRAIN_CAPACITY}")
+        require((trainer.width, trainer.height, trainer.n_images) == (W, H, WD_SHOTS),
+                "train_splats scene size")
+        log(f"  (i) train_splats: capacity {trainer.capacity}, {len(trainer.train_idx)} training "
+            f"views, {n_val} validation; launch counts {counts}")
+        for k in ("stream_bwd", "keyed_perm", "seg_reduce"):
+            require(counts.get(k, 0) == WD_STEPS,
+                    f"{k} launched {counts.get(k, 0)} times in {WD_STEPS} steps")
+        require(counts.get("stream_fwd", 0) == WD_STEPS + n_val,
+                f"stream_fwd launched {counts.get('stream_fwd', 0)} times, not "
+                f"{WD_STEPS} steps + {n_val} eval renders")
+        losses = [v for _, v in tb_scalars(os.path.join(res, "tb"), "train/loss")]
+        require(len(losses) == WD_STEPS and all(np.isfinite(losses)), f"tb losses {losses}")
+        # the reset at step 25 clamps every opacity to 0.01, so the loss
+        # jumps there; it must fall from the 5 steps after it to the last 5
+        after_reset = float(np.mean(losses[25:30]))
+        require(float(np.mean(losses[-5:])) < after_reset,
+                f"losses did not fall after the reset: {losses[25:30]} -> {losses[-5:]}")
+        require(hist[-1]["loss"] == losses[-1], "history vs tb loss")
+        ckpt = os.path.join(res, "ckpts", f"ckpt_{WD_STEPS}.npz")
+        val_json = os.path.join(res, "stats", f"val_step{WD_STEPS:04d}.json")
+        require(os.path.exists(ckpt) and os.path.exists(val_json), "checkpoint / stats JSON")
+        with open(val_json) as fh:
+            val = json.load(fh)
+        steps_ms = (hist[-1]["time_s"] * 1e3) / WD_STEPS
+        log(f"  losses (tb): {', '.join(f'{x:.4f}' for x in losses)}")
+        log(f"  mean of steps 26-30 (after the reset) {after_reset:.5f}, of the last 5 "
+            f"{np.mean(losses[-5:]):.5f}; alive "
+            f"{int(num_gs[0])} -> {int(num_gs[-1])} (refines at 10, 20, 30, reset at 25); "
+            f"eval psnr {val['psnr']:.3f}, ssim {val['ssim']:.4f}")
+        log(f"  train_splats {walls['train_splats']:.2f} s (parse, load, init, "
+            f"{WD_STEPS} steps, save, eval); the loop {hist[-1]['time_s']:.2f} s, "
+            f"{steps_ms:.1f} ms a step (host clock, tb read every step); peak memory "
+            f"{_peak_gib(dev):.2f} GiB | {card}")
+        first_loss = losses[0]
+        del trainer
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # (ii) the streaming scene
+        t0 = time.perf_counter()
+        parser = Parser(wd)
+        ram = to_scene_data(parser)
+        st_scene = to_scene_data(parser, streaming=True)
+        st = st_scene.images
+        diff = np.abs(st[np.arange(WD_SHOTS)] - ram.images.astype(np.float32) / 255.0)
+        # PIL decodes PNG exactly; the native loader's bilinear resample
+        # differs on the last row and column (tests/test_native_loader.py)
+        exact = st.backend == "pil"
+        why = [ln for ln in (st.native_error or "").splitlines() if "error" in ln][:1]
+        log(f"  (ii) streaming scene: decoder {st.backend!r}"
+            + (f" (the native loader did not build: {why[0].strip()})" if why else "")
+            + f"; max abs difference to the in-RAM images {diff.max():.3g} (interior "
+            f"{diff[:, 1:-1, 1:-1].max():.3g})")
+        require(diff.max() == 0 if exact
+                else diff[:, 1:-1, 1:-1].max() == 0 and diff.max() <= 1 / 255,
+                "streaming images differ from the in-RAM images")
+        scfg = lambda d: Config(sh_degree=3, max_steps=3, eval_steps=[], save_steps=[],
+                                tb_every=100, result_dir=os.path.join(tmp, d),
+                                camera_model="pinhole")
+        tr_s = Trainer(scfg("stream"), st_scene, device=dev)
+        h_s = tr_s.train(log_every=1)
+        del tr_s
+        tr_r = Trainer(dataclasses.replace(scfg("ram"), max_steps=1), ram, device=dev)
+        h_r = tr_r.train(log_every=1)
+        del tr_r
+        walls["streaming"] = time.perf_counter() - t0
+        require(len(h_s) == 3 and all(np.isfinite([h["loss"] for h in h_s])),
+                "streaming Trainer losses")
+        require(h_s[0]["loss"] == h_r[0]["loss"] if exact
+                else abs(h_s[0]["loss"] - h_r[0]["loss"]) <= 1e-4 * abs(h_r[0]["loss"]),
+                f"first loss streaming {h_s[0]['loss']} vs in RAM {h_r[0]['loss']}")
+        require(abs(h_r[0]["loss"] - first_loss) <= 1e-6 * abs(first_loss),
+                f"first loss {h_r[0]['loss']} vs train_splats' {first_loss}")
+        s_losses = ", ".join(f"{h['loss']:.6f}" for h in h_s)
+        log(f"  streaming Trainer, 3 steps: losses {s_losses}; the in-RAM Trainer's first "
+            f"{h_r[0]['loss']:.6f}, train_splats' {first_loss:.6f}; {walls['streaming']:.2f} s")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # (iii) the eval-only CLI run in a subprocess
+        os.remove(val_json)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "splat_one_tpu_torch.app.cli", "train", wd, "--ckpt", ckpt,
+             "--compression", "png", "--device", str(dev)],
+            capture_output=True, text=True, timeout=900)
+        walls["cli_eval"] = time.perf_counter() - t0
+        require(proc.returncode == 0,
+                f"cli train --ckpt exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        with open(val_json) as fh:
+            val2 = json.load(fh)
+        with open(os.path.join(res, "stats", f"compress_step{WD_STEPS:04d}.json")) as fh:
+            comp_stats = json.load(fh)
+        require(abs(val2["psnr"] - val["psnr"]) <= 1e-4 * abs(val["psnr"]),
+                f"eval-only psnr {val2['psnr']} vs the trained Trainer's {val['psnr']}")
+        traj_dir = os.path.join(res, "videos", f"traj_{WD_STEPS}")
+        frames = sorted(os.listdir(traj_dir))
+        n_interp = max(1, 60 // (WD_SHOTS - 10 - 1))
+        require(len(frames) == n_interp * (WD_SHOTS - 10 - 1),
+                f"{len(frames)} trajectory frames")
+        with Image.open(os.path.join(traj_dir, frames[-1])) as im:
+            require(im.size == (2 * W, H), f"trajectory frame size {im.size}")
+        mt = [os.path.getmtime(os.path.join(traj_dir, f)) for f in frames]
+        fps = (len(mt) - 1) / max(mt[-1] - mt[0], 1e-9)
+        comp_dir = os.path.join(res, "compression")
+        planes = sorted(os.listdir(comp_dir))
+        require(len(planes) == 7 + 15 and "meta.json" in planes, f"compression planes {planes}")
+        comp_bytes = sum(os.path.getsize(os.path.join(comp_dir, f)) for f in planes)
+        require(np.isfinite(comp_stats["psnr"]), "compressed eval psnr")
+        n_gs = comp_stats["num_GS"]
+        log(f"  (iii) cli train --ckpt --compression png (subprocess, "
+            f"{walls['cli_eval']:.2f} s): psnr {val2['psnr']:.3f} (in process "
+            f"{val['psnr']:.3f}), compressed psnr {comp_stats['psnr']:.3f}; {len(frames)} "
+            f"trajectory frames {2 * W}x{H} at {fps:.2f} frames/s (render + PNG, file "
+            f"times); {len(planes)} compression files, {comp_bytes} B for {n_gs} gaussians "
+            f"({comp_bytes / max(n_gs, 1):.2f} B each; the checkpoint {os.path.getsize(ckpt)} B)")
+
+        # (iv) the viewer subprocess
+        port = _free_port()
+        t0 = time.perf_counter()
+        viewer_log = open(os.path.join(tmp, "viewer.log"), "w+")
+        viewer_proc = subprocess.Popen(
+            [sys.executable, "-m", "splat_one_tpu_torch.app.cli", "viewer", wd, "--port",
+             str(port), "--device", str(dev)],
+            stdout=viewer_log, stderr=subprocess.STDOUT, text=True)
+        try:
+            url = f"http://127.0.0.1:{port}"
+            deadline = time.time() + 300
+            while True:
+                try:
+                    with urllib.request.urlopen(url + "/", timeout=10) as r:
+                        require(r.status == 200 and b"<img" in r.read(), "viewer page")
+                    break
+                except (urllib.error.URLError, ConnectionError) as e:
+                    if viewer_proc.poll() is not None:
+                        viewer_log.seek(0)
+                        require(False, f"viewer exited {viewer_proc.returncode}: "
+                                       f"{viewer_log.read()[-3000:]}")
+                    require(time.time() < deadline, f"viewer did not come up: {e!r}")
+                    time.sleep(0.5)
+            t_up = time.perf_counter() - t0
+            req_ms = []
+            for q in ("x=0&y=-0.2&z=-1.5&yaw=0&pitch=0", "x=0.3&y=-0.2&z=-1.4&yaw=-0.2&pitch=0",
+                      "x=0&y=0&z=0&yaw=0&pitch=0&model=spherical"):
+                t1 = time.perf_counter()
+                with urllib.request.urlopen(f"{url}/render?{q}", timeout=120) as r:
+                    body = r.read()
+                    require(r.status == 200 and r.headers["Content-Type"] == "image/jpeg",
+                            f"/render?{q}: {r.status} {r.headers['Content-Type']}")
+                req_ms.append((time.perf_counter() - t1) * 1e3)
+                with Image.open(io.BytesIO(body)) as im:
+                    require(im.size == (W, H), f"viewer image {im.size}, not {W}x{H}")
+        finally:
+            viewer_proc.terminate()
+            try:
+                viewer_proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                viewer_proc.kill()
+                viewer_proc.wait()
+            viewer_log.close()
+        walls["viewer"] = time.perf_counter() - t0
+        log(f"  (iv) cli viewer (subprocess): up in {t_up:.2f} s; GET / 200; /render 200 "
+            f"image/jpeg {W}x{H} (the Trainer's size, the page's camera 640x480): "
+            f"{', '.join(f'{x:.1f}' for x in req_ms)} ms (pinhole, pinhole, spherical; "
+            f"host clock through HTTP and the JPEG encode); stopped")
+
+        # (v) the options on the same workdir at the same capacity
+        t0 = time.perf_counter()
+        depths = np.stack([sparse_depth_map(parser.points, parser.camtoworlds[i],
+                                            parser.Ks[i], W, H) for i in range(WD_SHOTS)])
+        log(f"  (v) sparse depth maps: {int((depths > 0).sum())} supervised pixels over "
+            f"{WD_SHOTS} views ({time.perf_counter() - t0:.2f} s)")
+        opt_steps = 6
+        base = dict(sh_degree=3, max_steps=opt_steps, eval_steps=[opt_steps],
+                    save_steps=[opt_steps], tb_every=100, camera_model="pinhole")
+        dstrat = DefaultStrategyCfg(refine_start_iter=0, refine_stop_iter=100, refine_every=3,
+                                    reset_every=1000)
+        options = (
+            ("a: pose_opt + bilateral grid + depth loss", ram._replace(depths=depths),
+             dict(pose_opt=True, use_bilateral_grid=True, depth_loss=True, strategy=dstrat)),
+            ("b: app_opt", ram, dict(app_opt=True, strategy=dstrat)),
+            ("c: MCMC (MCMCStrategyCfg defaults, refine from step 0 every 3)", ram,
+             dict(strategy=dataclasses.replace(MCMCStrategyCfg(), refine_start_iter=0,
+                                               refine_every=3))),
+        )
+        for i, (label, scene, kw) in enumerate(options):
+            t1 = time.perf_counter()
+            ocfg = Config(result_dir=os.path.join(tmp, f"opt{i}"), **base, **kw)
+            _reset_peak(dev)
+            tr = Trainer(ocfg, scene, device=dev)
+            require(tr.capacity == TRAIN_CAPACITY, f"{label}: capacity {tr.capacity}")
+            h = tr.train(log_every=1)
+            peak = _peak_gib(dev)
+            ls = [x["loss"] for x in h]
+            require(len(ls) == opt_steps and all(np.isfinite(ls)), f"{label}: losses {ls}")
+            with open(os.path.join(tmp, f"opt{i}", "stats",
+                                   f"val_step{opt_steps:04d}.json")) as fh:
+                ostats = json.load(fh)
+            extra = ""
+            if kw.get("use_bilateral_grid"):
+                require(np.isfinite(ostats.get("cc_psnr", np.nan)), f"{label}: cc_psnr")
+                moved = float(tr.state.pose_params.abs().max())
+                require(moved > 0, f"{label}: the pose embeddings did not move")
+                extra = (f", cc_psnr {ostats['cc_psnr']:.3f}, pose max |embed| {moved:.2e}, "
+                         f"depth loss {h[-1]['depthloss']:.5f}")
+            if isinstance(kw["strategy"], MCMCStrategyCfg):
+                ref = [x for x in h if "n_grown" in x]
+                require(len(ref) == 2, f"{label}: refines {ref}")
+                extra = ", refines " + "; ".join(
+                    f"step {x['step']}: n_relocated {int(x['n_relocated'])}, n_grown "
+                    f"{int(x['n_grown'])}" for x in ref)
+            path = tr.save_checkpoint(tr.state.step)
+            back = Trainer(ocfg, scene, device=dev)
+            back.load_checkpoint(path)
+            require(_states_equal(back.state, tr.state), f"{label}: checkpoint round trip")
+            del back, tr
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            walls[f"option_{label[0]}"] = time.perf_counter() - t1
+            log(f"  ({label}): losses {', '.join(f'{x:.5f}' for x in ls)}; psnr "
+                f"{ostats['psnr']:.3f}{extra}; checkpoint saved and loaded back equal; "
+                f"peak memory {peak:.2f} GiB; {walls[f'option_{label[0]}']:.2f} s | {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    walls["phase"] = time.perf_counter() - t_phase
+    log(f"  (vi) wall times: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()))
+    return counts
+
+
 # ---------------------------------------------------------------- main
 def main():
     import torch
@@ -1980,6 +2442,8 @@ def main():
     torch.cuda.empty_cache()
 
     rows = training_phase(dev, card, sc, max_err)
+    torch.cuda.empty_cache()
+    stage_counts = train_stage_phase(dev, card)
     kernels = [dict(fwd_row, launches=rows["launches"].get("stream_fwd", 0),
                     max_abs_err=max_err["stream_fwd"])] + rows["kernels"] + [
         dict(tile_fwd_row, launches=rows["tiled_launches"].get("tile_fwd", 0),
@@ -1989,6 +2453,8 @@ def main():
     ]
     for row in kernels:
         require(row["launches"] > 0, f"{row['name']} was not launched on its path")
+        # the train stage's own run (phase 5e (i)): steps + eval renders
+        row["stage_launches"] = stage_counts.get(row["name"], 0)
 
     # phase 6: the kernels line, the card line, the result line
     print(json.dumps({"kernels": kernels}), flush=True)

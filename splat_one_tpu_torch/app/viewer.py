@@ -7,11 +7,15 @@ answers with a JPEG rendered on the GPU. ``make_render_fn`` builds the
 render function it serves from a JAX-format checkpoint
 (``load_checkpoint_params``): the computation of the JAX Trainer's
 ``_render_view_alt``, RGB+ED through ``rasterization()``.
+``serve_workdir`` serves a workdir's latest checkpoint through a
+``Trainer.render_view`` (``workdir_server`` builds that server).
 """
 
 from __future__ import annotations
 
 import io
+import os
+import re
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
@@ -20,7 +24,10 @@ import numpy as np
 import torch
 
 from splat_one_tpu_torch.core.transforms import invert_se3
+from splat_one_tpu_torch.data.opensfm import Parser, to_scene_data
 from splat_one_tpu_torch.render.rasterization import rasterization
+from splat_one_tpu_torch.train.config import Config
+from splat_one_tpu_torch.train.trainer import Trainer
 from splat_one_tpu_torch.utils.device import resolve as resolve_device
 
 _PAGE = """<!DOCTYPE html>
@@ -132,17 +139,23 @@ class ViewerServer:
 
         return Handler
 
+    def _bind(self):
+        self.httpd = ThreadingHTTPServer(("0.0.0.0", self.port), self._make_handler())
+        print(f"viewer on http://localhost:{self.port}", flush=True)
+        return self.httpd
+
     def serve_forever(self):
-        httpd = ThreadingHTTPServer(
-            ("0.0.0.0", self.port), self._make_handler()
-        )
-        print(f"viewer on http://localhost:{self.port}")
-        httpd.serve_forever()
+        self._bind().serve_forever()
 
     def serve_background(self):
-        t = threading.Thread(target=self.serve_forever, daemon=True)
+        """Bind now and serve from a daemon thread; ``shutdown`` stops it."""
+        t = threading.Thread(target=self._bind().serve_forever, daemon=True)
         t.start()
         return t
+
+    def shutdown(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
 
 
 def params_from_numpy(np_params: dict, alive, device="cuda"):
@@ -222,3 +235,42 @@ def make_render_fn(params, alive, width, height, sh_degree=3,
     for the float rgb, depth and alpha. Runs on CUDA unless ``device="cpu"``."""
     return Renderer(params, alive, width, height, sh_degree, camera_model,
                     device)
+
+
+def latest_checkpoint(workdir: str):
+    """The highest-step ``ckpt_<step>.npz`` under ``<workdir>/results/ckpts``
+    (by step number, not name), or None."""
+    ckpt_dir = os.path.join(workdir, "results", "ckpts")
+    if not os.path.isdir(ckpt_dir):
+        return None
+    cands = [(int(m.group(1)), f) for f in os.listdir(ckpt_dir)
+             if (m := re.match(r"ckpt_(\d+).*\.npz$", f))]
+    return os.path.join(ckpt_dir, max(cands)[1]) if cands else None
+
+
+def workdir_server(workdir: str, port: int = 8080, ckpt: str = None,
+                   device="cuda") -> ViewerServer:
+    """A ``ViewerServer`` for the workdir: a Trainer over its first two
+    images (for the size and camera model) loads ``ckpt`` or the latest
+    checkpoint and renders each request through ``render_view``. The
+    server's page and camera are 640x480; the render has the images'
+    size, as in the JAX package. Runs on CUDA unless ``device="cpu"``."""
+    dev = resolve_device(device)
+    scene = to_scene_data(Parser(workdir), max_images=2)
+    cfg = Config(result_dir=os.path.join(workdir, "results"),
+                 camera_model=scene.camera_model)
+    tr = Trainer(cfg, scene, device=dev)
+    ckpt = ckpt or latest_checkpoint(workdir)
+    if ckpt:
+        tr.load_checkpoint(ckpt)
+
+    def render_fn(c2w, K, model):
+        rgb, _ = tr.render_view(c2w, K, camera_model=model)
+        return (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
+
+    return ViewerServer(render_fn, port=port)
+
+
+def serve_workdir(workdir: str, port: int = 8080, ckpt: str = None, device="cuda"):
+    """Serve the workdir's latest checkpoint (or ``ckpt``) until killed."""
+    workdir_server(workdir, port, ckpt, device).serve_forever()

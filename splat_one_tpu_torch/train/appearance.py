@@ -1,0 +1,57 @@
+"""Per-image appearance model: counterpart of
+``splat_one_tpu/train/appearance.py``.
+
+A per-image embedding, the per-gaussian features and the SH basis of the
+view direction go through a small MLP that predicts colour logits per
+(camera, gaussian); the Trainer adds the per-gaussian ``colors`` and
+takes the sigmoid (``Config.app_opt``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from splat_one_tpu_torch.core.sh import eval_sh_bases, num_sh_bases
+
+Params = Dict[str, torch.Tensor]
+
+
+def init_appearance_params(generator: torch.Generator, n_images: int,
+                           feature_dim: int = 32, embed_dim: int = 16,
+                           sh_degree: int = 3, mlp_width: int = 64,
+                           mlp_depth: int = 2) -> Params:
+    """Zero embeddings, He-normal weights drawn from ``generator`` (on its
+    device), zero biases."""
+    dev = generator.device
+    in_dim = embed_dim + feature_dim + num_sh_bases(sh_degree)
+    params: Params = {"embeds": torch.zeros((n_images, embed_dim), device=dev)}
+    dims = [in_dim] + [mlp_width] * (mlp_depth - 1) + [3]
+    for i, (di, do) in enumerate(zip(dims[:-1], dims[1:])):
+        params[f"w{i}"] = torch.randn((di, do), generator=generator,
+                                      device=dev) * math.sqrt(2.0 / di)
+        params[f"b{i}"] = torch.zeros((do,), device=dev)
+    return params
+
+
+def appearance_color(params: Params, features: torch.Tensor,  # [N, F]
+                     image_ids: torch.Tensor,  # [C] int
+                     dirs: torch.Tensor,  # [C, N, 3], unnormalized
+                     sh_degree: int = 3) -> torch.Tensor:
+    """Colour logits ``[C, N, 3]`` (the caller adds colours and applies the
+    sigmoid)."""
+    C, N = image_ids.shape[0], features.shape[0]
+    d = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-8)
+    basis = eval_sh_bases(sh_degree, d)  # [C, N, B]
+    emb = params["embeds"][image_ids]  # [C, E]
+    h = torch.cat([emb[:, None, :].expand(C, N, emb.shape[-1]),
+                   features[None].expand(C, N, features.shape[-1]), basis], dim=-1)
+    i = 0
+    while f"w{i}" in params:
+        h = h @ params[f"w{i}"] + params[f"b{i}"]
+        if f"w{i + 1}" in params:
+            h = torch.relu(h)
+        i += 1
+    return h

@@ -1,9 +1,7 @@
 """Training configuration: counterpart of ``splat_one_tpu/train/config.py``,
 field for field (the reference trainer's ``Config`` surface plus the
 capacity knobs). ``adjust_steps`` scales every step count by
-``steps_scaler``. Fields of modules the port has not ported yet
-(``pose_opt``, ``app_opt``, ``use_bilateral_grid``, the MCMC strategy)
-are kept so configs carry over; the Trainer refuses them.
+``steps_scaler``.
 """
 
 from __future__ import annotations

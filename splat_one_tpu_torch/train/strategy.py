@@ -16,9 +16,17 @@ Gradient statistics come from the rasterizer's ``means2d_dummy`` /
 ``absgrad_dummy`` gradients, scaled to NDC-style units (grad * size / 2)
 as gsplat does. The normal draws of a split are arguments
 (``default_refine(noise, ...)``); the Trainer draws them from its
-``torch.Generator``. The MCMC strategy's config is here because
-``train.config`` names it; its ``mcmc_refine`` and ``mcmc_noise`` are not
-ported yet.
+``torch.Generator``.
+
+The MCMC strategy (3DGS as MCMC): ``mcmc_refine`` relocates dead
+(low-opacity) gaussians onto live ones and grows the population 5 %
+toward ``cap_max``, ``mcmc_noise`` adds covariance-shaped noise to the
+means of near-dead gaussians every step. Their draws are arguments too:
+``mcmc_draw_targets`` samples the relocation and growth targets in
+proportion to opacity with ``torch.multinomial`` (O(cap) memory; the JAX
+package's ``jax.random.categorical`` over ``cap`` logits builds a
+``[cap, cap]`` array), and the Trainer passes the normal draws of the
+noise.
 """
 
 from __future__ import annotations
@@ -53,7 +61,7 @@ class DefaultStrategyCfg:
 
 @dataclasses.dataclass(frozen=True)
 class MCMCStrategyCfg:
-    """gsplat MCMCStrategy knobs (the strategy itself is not ported yet)."""
+    """gsplat MCMCStrategy knobs."""
 
     cap_max: int = 1_000_000
     noise_lr: float = 5e5
@@ -211,3 +219,113 @@ def reset_opacity(params: Params, opt_state: AdamState, alive: torch.Tensor,
     m["opacities"] = torch.zeros_like(opt_state.m["opacities"])
     v["opacities"] = torch.zeros_like(opt_state.v["opacities"])
     return params, AdamState(m=m, v=v, count=opt_state.count)
+
+
+# ---------------------------------------------------------------------------
+# MCMC strategy (3DGS as MCMC: stochastic relocation + noise injection)
+# ---------------------------------------------------------------------------
+
+MAX_CATEGORIES = 1 << 24  # torch.multinomial's limit on the categories
+
+
+def _mcmc_masks(params: Params, alive: torch.Tensor, cfg: MCMCStrategyCfg):
+    opa = torch.sigmoid(params["opacities"])
+    dead = alive & (opa < cfg.min_opacity)
+    return opa, dead, alive & ~dead
+
+
+def mcmc_draw_targets(params: Params, alive: torch.Tensor, cfg: MCMCStrategyCfg,
+                      generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two vectors of ``cap`` slot indices, each drawn with replacement in
+    proportion to ``max(opacity, 1e-8)`` over the live gaussians: the
+    distribution of ``categorical(log p)`` in the JAX package. With no
+    live gaussian every draw is slot 0, as the arg-max of all -inf logits
+    is there."""
+    cap = alive.shape[0]
+    if cap > MAX_CATEGORIES:
+        raise ValueError(f"MCMC targets: capacity {cap} is above torch.multinomial's "
+                         f"{MAX_CATEGORIES} categories")
+    opa, _, live = _mcmc_masks(params, alive, cfg)
+    p = torch.where(live, torch.clamp(opa, min=1e-8), torch.zeros_like(opa))
+    p[0] += (p.sum() == 0).to(p.dtype)
+    return tuple(torch.multinomial(p, cap, replacement=True, generator=generator)
+                 for _ in range(2))
+
+
+def _relocation_opacity_scale(opa, scales, n_split):
+    """Splitting a gaussian into n keeps its rendered mass:
+    o' = 1 - (1 - o)^(1/n); scales shrink by the matching factor."""
+    n = torch.clamp(n_split.to(torch.float32), min=1.0)
+    new_opa = 1.0 - torch.pow(1.0 - opa, 1.0 / n)
+    ratio = new_opa * torch.sqrt(n) / torch.clamp(opa, min=1e-7)
+    new_scales = scales - 0.5 * torch.log(torch.clamp(ratio, min=1e-7))[..., None]
+    return new_opa, new_scales
+
+
+def _logit(p):
+    p = torch.clamp(p, 1e-7, 1 - 1e-7)
+    return torch.log(p / (1 - p))
+
+
+def mcmc_refine(tgt: torch.Tensor, tgt2: torch.Tensor, params: Params,
+                opt_state: AdamState, alive: torch.Tensor, cfg: MCMCStrategyCfg
+                ) -> Tuple[Params, AdamState, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Relocate dead gaussians to the targets ``tgt`` [cap], then grow the
+    population 5 % toward ``cap_max`` into free slots copied from the
+    targets ``tgt2`` [cap] (``mcmc_draw_targets``). Each source gives up
+    mass to its copies (the relocation opacity and scale); the Adam
+    moments of every touched slot are zeroed."""
+    cap = alive.shape[0]
+    opa, dead, live = _mcmc_masks(params, alive, cfg)
+    picks = torch.zeros((cap,), dtype=torch.int32, device=alive.device).index_add_(
+        0, tgt, dead.to(torch.int32))
+    new_opa_t, new_scales_t = _relocation_opacity_scale(opa, params["scales"], picks + 1)
+    new_opa_logit = _logit(new_opa_t)
+    params = {k: (v if k in ("scales", "opacities")
+                  else torch.where(_rows(dead, v), v[tgt], v)) for k, v in params.items()}
+    params["scales"] = torch.where(dead[:, None], new_scales_t[tgt], params["scales"])
+    params["opacities"] = torch.where(dead, new_opa_logit[tgt], params["opacities"])
+    split = (picks > 0) & live
+    params["opacities"] = torch.where(split, new_opa_logit, params["opacities"])
+    params["scales"] = torch.where(split[:, None], new_scales_t, params["scales"])
+
+    # growth into free slots, 5 % of the alive count, up to cap_max
+    n_live = torch.sum(alive.to(torch.int32))
+    budget = torch.minimum((n_live.to(torch.float32) * 0.05).to(torch.int32),
+                           torch.clamp(min(cfg.cap_max, cap) - n_live, min=0))
+    free = ~alive
+    rank = torch.cumsum(free.to(torch.int32), 0) - 1
+    grow = free & (rank < budget)
+    picks2 = torch.zeros_like(picks).index_add_(0, tgt2, grow.to(torch.int32))
+    opa2_t, scales2_t = _relocation_opacity_scale(
+        torch.sigmoid(params["opacities"]), params["scales"], picks2 + 1)
+    opa2_logit = _logit(opa2_t)
+    params = {k: (v if k in ("scales", "opacities")
+                  else torch.where(_rows(grow, v), v[tgt2], v)) for k, v in params.items()}
+    params["opacities"] = torch.where(grow, opa2_logit[tgt2], params["opacities"])
+    params["scales"] = torch.where(grow[:, None], scales2_t[tgt2], params["scales"])
+    sampled = (picks2 > 0) & live
+    params["opacities"] = torch.where(sampled, opa2_logit, params["opacities"])
+    params["scales"] = torch.where(sampled[:, None], scales2_t, params["scales"])
+
+    opt_state = surgery_zero_moments(opt_state, dead | grow)
+    info = {"n_relocated": torch.sum(dead.to(torch.int32)),
+            "n_grown": torch.sum(grow.to(torch.int32))}
+    return params, opt_state, alive | grow, info
+
+
+def mcmc_noise(eps: torch.Tensor, params: Params, alive: torch.Tensor,
+               lr_means: torch.Tensor, noise_lr: float = 5e5) -> Params:
+    """SGLD-style noise on the means: ``eps`` [cap, 3] standard normal
+    draws, scaled by lr_means * noise_lr and an opacity gate that is ~1
+    only below opacity 0.005, then shaped by the covariance
+    R diag(S^2) R^T (gsplat MCMC ``_add_noise_to_splats``)."""
+    opa = torch.sigmoid(params["opacities"])
+    gate = torch.sigmoid(100.0 * ((1.0 - opa) - 0.995))
+    R = quat_to_rotmat(params["quats"])
+    e = eps * (gate * lr_means * noise_lr)[:, None]
+    tmp = torch.einsum("nji,nj->ni", R, e) * torch.exp(2.0 * params["scales"])
+    noise_w = torch.einsum("nij,nj->ni", R, tmp)
+    out = dict(params)
+    out["means"] = torch.where(alive[:, None], params["means"] + noise_w, params["means"])
+    return out

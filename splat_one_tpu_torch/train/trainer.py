@@ -10,17 +10,29 @@ L1 + D-SSIM loss through ``rasterization`` (projection by autograd, the
 compositing kernels' backward, the segmented reduce) with
 ``torch.autograd.grad`` and updates the state functionally.
 
+Options, as in the JAX Trainer: the MCMC strategy (relocation and growth
+at each refine, noise on the means every step; no capacity growth and no
+opacity reset), per-image pose embeddings (``pose_opt``: their gradients
+reach them through the view matrices), per-image bilateral grids applied
+to the render (``use_bilateral_grid``, with ``cc_psnr`` in ``eval``), the
+appearance MLP (``app_opt``: per-camera colours in place of SH) and the
+depth loss on ``SceneData.depths``. ``run`` trains, or with
+``Config.ckpt`` loads a checkpoint and evaluates, renders the trajectory
+(``render_traj``) and, with ``compression="png"``, evaluates the
+compressed splats (``run_compression``).
+
 Checkpoints use the JAX Trainer's npz keys (``params['means']``,
 ``opt_m[...]``, ``opt_v[...]``, ``opt_count``, ``alive``, ``step``,
-``strat_grad2d``, ``strat_count``), so a JAX checkpoint resumes here and
+``strat_grad2d``, ``strat_count``; ``pose_params``, ``pose_m[...]``,
+``bil_grids``, ``bil_m[...]``, ``app[...]``, ``app_m[...]`` and their
+``_v`` / ``_count`` with the options), so a JAX checkpoint resumes here and
 ``app.viewer.load_checkpoint_params`` reads this Trainer's.
 
 Runs on CUDA unless ``device="cpu"``; ``Config.raster_impl`` picks the
 stream rasterizer (default) or the gen-1 tiled one, through the type of
-the intersection caps. Not ported yet, and refused: pose optimisation,
-the appearance model, the bilateral grid, the MCMC strategy and mesh
-(multi-GPU) training; LPIPS in ``eval`` is reported as None, as the JAX
-Trainer does without weights.
+the intersection caps. Mesh (multi-GPU) training is not ported yet and
+is refused; LPIPS in ``eval`` is reported as None, as the JAX Trainer
+does without weights.
 """
 
 from __future__ import annotations
@@ -28,21 +40,29 @@ from __future__ import annotations
 import json
 import logging
 import os
+import shutil
+import subprocess
 import time
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from PIL import Image
 
 from splat_one_tpu_torch.core import gaussians as G
 from splat_one_tpu_torch.core.sh import num_sh_bases
 from splat_one_tpu_torch.core.transforms import invert_se3
+from splat_one_tpu_torch.data import traj as traj_mod
 from splat_one_tpu_torch.ops.intersect import IsectCaps
 from splat_one_tpu_torch.ops.ssim import ssim as ssim_fn
 from splat_one_tpu_torch.ops.stream_isect import StreamCaps, supertile_grid
 from splat_one_tpu_torch.render.rasterization import rasterization
+from splat_one_tpu_torch.train import appearance as APP
+from splat_one_tpu_torch.train import bilateral_grid as BG
+from splat_one_tpu_torch.train import compression as comp
 from splat_one_tpu_torch.train import losses as L
 from splat_one_tpu_torch.train import optimizers as opt
+from splat_one_tpu_torch.train import pose_opt as P
 from splat_one_tpu_torch.train import strategy as S
 from splat_one_tpu_torch.train.config import Config
 from splat_one_tpu_torch.train.strategy import MCMCStrategyCfg
@@ -70,15 +90,13 @@ class TrainState(NamedTuple):
     alive: torch.Tensor
     strat: S.StrategyState
     step: int
+    pose_params: Optional[torch.Tensor] = None
+    pose_opt_state: Optional[opt.AdamState] = None
+    bil_grids: Optional[torch.Tensor] = None
+    bil_opt_state: Optional[opt.AdamState] = None
+    app_params: Optional[Dict[str, torch.Tensor]] = None
+    app_opt_state: Optional[opt.AdamState] = None
 
-
-# Config flags whose modules are not ported yet (ROADMAP Queue 1 places
-# them after Slice C, the gen-1 rasterizer).
-_NOT_PORTED = (
-    ("pose_opt", "pose optimisation (train/pose_opt.py)"),
-    ("app_opt", "the appearance model (train/appearance.py)"),
-    ("use_bilateral_grid", "the bilateral grid (train/bilateral_grid.py)"),
-)
 
 
 def _sh_band_degrees(sh_degree: int) -> np.ndarray:
@@ -106,16 +124,8 @@ class Trainer:
         self.device = resolve_device(device)
         self.cfg = cfg.adjust_steps()
         cfg = self.cfg
-        for flag, what in _NOT_PORTED:
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"{flag}: {what} is not ported yet; it follows Slice C")
         if cfg.raster_impl not in ("stream", "tiled"):
             raise ValueError(f"bad raster_impl {cfg.raster_impl!r}")
-        if isinstance(cfg.strategy, MCMCStrategyCfg):
-            raise NotImplementedError(
-                "the MCMC strategy (mcmc_refine, mcmc_noise) is not ported "
-                "yet; it follows Slice C")
         self.scene = scene
         if scene.camera_model and scene.camera_model != cfg.camera_model:
             # the data's camera model is authoritative: a mismatched
@@ -126,7 +136,7 @@ class Trainer:
                 scene.camera_model, cfg.camera_model)
             cfg.camera_model = scene.camera_model
         self.result_dir = result_dir or cfg.result_dir
-        for sub in ("ckpts", "stats"):
+        for sub in ("ckpts", "stats", "renders", "videos"):
             os.makedirs(os.path.join(self.result_dir, sub), exist_ok=True)
 
         M, H, W = scene.images.shape[:3]
@@ -138,8 +148,12 @@ class Trainer:
 
         n0 = scene.points.shape[0] if cfg.init_type == "sfm" else cfg.init_num_pts
         capacity = cfg.capacity or _next_pow2(int(n0 * cfg.capacity_headroom))
+        if isinstance(cfg.strategy, MCMCStrategyCfg):
+            capacity = max(capacity, _next_pow2(cfg.strategy.cap_max))
+        dev = self.device
         kw = dict(sh_degree=cfg.sh_degree, init_opacity=cfg.init_opa,
-                  init_scale=cfg.init_scale, seed=cfg.seed, device=self.device)
+                  init_scale=cfg.init_scale, seed=cfg.seed,
+                  feature_dim=32 if cfg.app_opt else 0, device=dev)
         if cfg.init_type == "sfm":
             params, alive = G.init_splats_from_points(
                 scene.points, scene.points_rgb, capacity, **kw)
@@ -147,20 +161,34 @@ class Trainer:
             params, alive = G.init_splats_random(
                 capacity, cfg.init_num_pts, cfg.init_extent * scene.scene_scale, **kw)
         self.capacity = capacity
-        self.state = TrainState(
-            params=params, opt_state=opt.adam_init(params), alive=alive,
-            strat=S.strategy_init(capacity, self.device), step=0)
+        # every random draw of step s comes from this generator reseeded
+        # with (seed, s), so a resumed run replays an uninterrupted one
+        self.gen = torch.Generator(device=dev)
+        state = dict(params=params, opt_state=opt.adam_init(params), alive=alive,
+                     strat=S.strategy_init(capacity, dev), step=0)
+        if cfg.pose_opt:
+            state["pose_params"] = P.init_pose_params(M, dev)
+            state["pose_opt_state"] = opt.adam_init({"pose": state["pose_params"]})
+        if cfg.use_bilateral_grid:
+            state["bil_grids"] = BG.init_bilateral_grids(M, cfg.bilateral_grid_shape, dev)
+            state["bil_opt_state"] = opt.adam_init({"bil": state["bil_grids"]})
+        if cfg.app_opt:
+            self.gen.manual_seed(cfg.seed + 1)
+            state["app_params"] = APP.init_appearance_params(
+                self.gen, M, feature_dim=32, embed_dim=cfg.app_embed_dim,
+                sh_degree=cfg.sh_degree)
+            state["app_opt_state"] = opt.adam_init(state["app_params"])
+        self.state = TrainState(**state)
         self._isect_mult = (cfg.avg_supertiles_per_gaussian
                             if cfg.raster_impl == "stream"
                             else cfg.avg_tiles_per_gaussian)
         self.caps = self._choose_caps(capacity)
-        # every random draw of step s comes from this generator reseeded
-        # with (seed, s), so a resumed run replays an uninterrupted one
-        self.gen = torch.Generator(device=self.device)
-        self._band_deg = torch.as_tensor(_sh_band_degrees(cfg.sh_degree),
-                                         device=self.device)
+        self._band_deg = torch.as_tensor(_sh_band_degrees(cfg.sh_degree), device=dev)
         self._hp = opt.adam_hparams(cfg.batch_size)
         self._lrs_base = opt.base_lrs(scene.scene_scale * cfg.global_scale)
+        # the appearance path's per-gaussian parameters
+        self._lrs_base.setdefault("features", 2.5e-3)
+        self._lrs_base.setdefault("colors", 2.5e-3)
         self._build_steps()
 
     # ------------------------------------------------------------------
@@ -203,42 +231,67 @@ class Trainer:
         hp = self._hp
         dev = self.device
         band_deg = self._band_deg
-        use_abs = cfg.strategy.absgrad
+        is_mcmc = isinstance(cfg.strategy, MCMCStrategyCfg)
+        use_abs = (not is_mcmc) and cfg.strategy.absgrad
 
-        def render(params, alive, camtoworlds, Ks, step, camera_model,
-                   m2d=None, absd=None):
-            # SH bands above the ramp's current degree are masked out
+        def color_input(params, app_params, camtoworlds, image_ids, step):
+            """(colours, sh_degree) for ``rasterization``: SH coefficients
+            with the bands above the ramp's current degree masked out, or
+            the appearance MLP's per-camera colours [B, CAP, 3]."""
+            if cfg.app_opt:
+                dirs = params["means"][None] - camtoworlds[:, None, :3, 3]
+                logits = APP.appearance_color(app_params, params["features"],
+                                              image_ids, dirs, cfg.sh_degree)
+                return torch.sigmoid(logits + params["colors"][None]), None
             active = min(step // cfg.sh_degree_interval, cfg.sh_degree)
             mask = (band_deg <= active).float()[None, :, None]
-            sh = torch.cat([params["sh0"], params["shN"] * mask], dim=1)
+            return torch.cat([params["sh0"], params["shN"] * mask], dim=1), cfg.sh_degree
+
+        def render(params, alive, camtoworlds, Ks, step, camera_model, image_ids,
+                   app_params, m2d=None, absd=None):
+            colors, sh_deg = color_input(params, app_params, camtoworlds, image_ids, step)
             return rasterization(
                 params["means"], params["quats"], torch.exp(params["scales"]),
-                torch.sigmoid(params["opacities"]), sh, invert_se3(camtoworlds),
-                Ks, W, H, sh_degree=cfg.sh_degree,
+                torch.sigmoid(params["opacities"]), colors, invert_se3(camtoworlds),
+                Ks, W, H, sh_degree=sh_deg,
                 near_plane=cfg.near_plane, far_plane=cfg.far_plane,
                 tile_size=cfg.tile_size, camera_model=camera_model,
                 render_mode="RGB+ED",
                 rasterize_mode="antialiased" if cfg.antialiased else "classic",
                 caps=caps, alive=alive, means2d_dummy=m2d, absgrad_dummy=absd)
 
+        def leaf(x):
+            return None if x is None else x.detach().requires_grad_(True)
+
         def train_step(state: TrainState, batch):
             step = state.step
             B = batch["camtoworld"].shape[0]
             cap = state.alive.shape[0]
-            params = {k: v.detach().requires_grad_(True)
-                      for k, v in state.params.items()}
+            ids = batch["image_id"]
+            params = {k: leaf(v) for k, v in state.params.items()}
+            pose = leaf(state.pose_params) if cfg.pose_opt else None
+            bil = leaf(state.bil_grids) if cfg.use_bilateral_grid else None
+            app = ({k: leaf(v) for k, v in state.app_params.items()}
+                   if cfg.app_opt else None)
             # zero hooks whose gradients are the densification statistics
             m2d = torch.zeros((B, cap, 2), device=dev, requires_grad=True)
             absd = (torch.zeros((B, cap, 2), device=dev, requires_grad=True)
                     if use_abs else None)
-            out, alpha, info = render(params, state.alive, batch["camtoworld"],
-                                      batch["K"], step, cfg.camera_model, m2d, absd)
+            camtoworlds = batch["camtoworld"]
+            if cfg.pose_opt:
+                camtoworlds = P.apply_pose_adjust(camtoworlds, pose[ids])
+            out, alpha, info = render(params, state.alive, camtoworlds, batch["K"],
+                                      step, cfg.camera_model, ids, app, m2d, absd)
             rgb = out[..., 0:3]
             if cfg.random_bkgd:
                 bkgd = torch.rand((1, 1, 1, 3), generator=self.gen, device=dev)
                 rgb = rgb + bkgd * (1.0 - alpha)
+            if cfg.use_bilateral_grid:
+                rgb = BG.slice_grid(bil[ids], rgb)
             m = L.image_loss(rgb, batch["image"], cfg.ssim_lambda)
             loss = m["loss"]
+            if cfg.use_bilateral_grid:
+                loss = loss + 10.0 * BG.total_variation_loss(bil[ids])
             if cfg.depth_loss and "depth" in batch:
                 dl = L.depth_loss(out[..., 3:4], batch["depth"],
                                   scene_scale=self.scene.scene_scale)
@@ -246,11 +299,14 @@ class Trainer:
                 m["depthloss"] = dl
             loss = loss + L.regularizers(params, state.alive, cfg.opacity_reg,
                                          cfg.scale_reg)
-            wrt = list(params.values()) + [absd if use_abs else m2d]
+            extra = {"pose": pose, "bil": bil, **(app or {})}
+            extra = {k: v for k, v in extra.items() if v is not None}
+            wrt = list(params.values()) + list(extra.values()) + [absd if use_abs else m2d]
             grads = torch.autograd.grad(loss, wrt, allow_unused=True)
             grads = [torch.zeros_like(x) if g is None else g
                      for g, x in zip(grads, wrt)]
-            gp = dict(zip(params, grads[:-1]))
+            gp = dict(zip(params, grads[:len(params)]))
+            gx = dict(zip(extra, grads[len(params):-1]))
             radii = info["radii_local"]
             strat = S.strategy_update(state.strat, grads[-1], radii, W, H)
 
@@ -260,15 +316,43 @@ class Trainer:
             new_params, opt_state = opt.adam_update(
                 gp, state.opt_state, state.params, lrs, b1=hp["b1"],
                 b2=hp["b2"], eps=hp["eps"], visible_mask=visible)
+            new = {}
+            if cfg.app_opt:
+                g_app = {k: gx[k] + cfg.app_opt_reg * v for k, v in state.app_params.items()}
+                new["app_params"], new["app_opt_state"] = opt.adam_update(
+                    g_app, state.app_opt_state, state.app_params,
+                    {k: cfg.app_opt_lr for k in state.app_params})
+            if cfg.use_bilateral_grid:
+                bg, new["bil_opt_state"] = opt.adam_update(
+                    {"bil": gx["bil"]}, state.bil_opt_state, {"bil": state.bil_grids},
+                    {"bil": 2e-3})
+                new["bil_grids"] = bg["bil"]
+            if cfg.pose_opt:
+                pp, new["pose_opt_state"] = opt.adam_update(
+                    {"pose": gx["pose"] + cfg.pose_opt_reg * state.pose_params},
+                    state.pose_opt_state, {"pose": state.pose_params},
+                    {"pose": cfg.pose_opt_lr})
+                new["pose_params"] = pp["pose"]
+            if is_mcmc:
+                # noise on the means every step
+                eps = torch.randn((cap, 3), generator=self.gen, device=dev)
+                new_params = S.mcmc_noise(eps, new_params, state.alive, lrs["means"],
+                                          cfg.strategy.noise_lr)
             metrics = {k: v.detach() for k, v in m.items()}
             metrics["loss"] = loss.detach()
             metrics["n_isect"] = info["n_isect"]
             metrics["overflow"] = info["overflow"]
-            return TrainState(params=new_params, opt_state=opt_state,
-                              alive=state.alive, strat=strat, step=step + 1), metrics
+            return state._replace(params=new_params, opt_state=opt_state, strat=strat,
+                                  step=step + 1, **new), metrics
 
         def refine_step(state: TrainState):
             cap = state.alive.shape[0]
+            if is_mcmc:
+                tgt = S.mcmc_draw_targets(state.params, state.alive, cfg.strategy, self.gen)
+                params, opt_state, alive, info = S.mcmc_refine(
+                    *tgt, state.params, state.opt_state, state.alive, cfg.strategy)
+                return state._replace(params=params, opt_state=opt_state, alive=alive,
+                                      strat=S.strategy_init(cap, dev)), info
             noise = tuple(torch.randn((cap, 3), generator=self.gen, device=dev)
                           for _ in range(2))
             params, opt_state, alive, strat, info = S.default_refine(
@@ -283,9 +367,10 @@ class Trainer:
             return state._replace(params=params, opt_state=opt_state)
 
         @torch.no_grad()
-        def eval_render(state: TrainState, camtoworld, K, camera_model=None):
+        def eval_render(state: TrainState, camtoworld, K, image_id, camera_model=None):
             out, alpha, _ = render(state.params, state.alive, camtoworld, K,
-                                   cfg.max_steps, camera_model or cfg.camera_model)
+                                   cfg.max_steps, camera_model or cfg.camera_model,
+                                   image_id, state.app_params)
             return torch.clamp(out[..., 0:3], 0.0, 1.0), alpha, out[..., 3:4]
 
         self._train_step = train_step
@@ -298,9 +383,11 @@ class Trainer:
 
     def _batch(self, idx: np.ndarray) -> Dict[str, torch.Tensor]:
         imgs_src = self.scene.images
-        f32_bytes = imgs_src.nbytes * (4 if imgs_src.dtype == np.uint8 else 1)
-        if f32_bytes < self._DEVICE_IMAGE_BUDGET:
-            # small scenes live on the device once; a batch is a gather
+        if (isinstance(imgs_src, np.ndarray)
+                and imgs_src.nbytes * (4 if imgs_src.dtype == np.uint8 else 1)
+                < self._DEVICE_IMAGE_BUDGET):
+            # small in-RAM scenes live on the device once; a batch is a
+            # gather. Streaming scenes decode on the host (and prefetch)
             if not hasattr(self, "_dev_images"):
                 f = imgs_src.astype(np.float32)
                 if imgs_src.dtype == np.uint8:
@@ -317,6 +404,7 @@ class Trainer:
             "camtoworld": t(self.scene.camtoworlds[idx]),
             "K": t(self.scene.Ks[idx]),
             "image": imgs,
+            "image_id": torch.as_tensor(np.asarray(idx, np.int64), device=self.device),
         }
         if self.cfg.depth_loss and self.scene.depths is not None:
             b["depth"] = t(self.scene.depths[idx])
@@ -327,6 +415,8 @@ class Trainer:
         cfg = self.cfg
         rng = np.random.default_rng(cfg.seed)
         strat_cfg = cfg.strategy
+        is_mcmc = isinstance(strat_cfg, MCMCStrategyCfg)
+        streaming = hasattr(self.scene.images, "prefetch")
         t_start = time.time()
         perm = rng.permutation(self.train_idx)
         pos = 0
@@ -355,6 +445,10 @@ class Trainer:
                 self._seed(step)
                 self.state, metrics = self._train_step(self.state, self._batch(idx))
                 idx = draw_idx()
+                if streaming:
+                    # decode the next batch on host threads while this
+                    # step runs on the device
+                    self.scene.images.prefetch(idx)
                 # intersection overflow -> grow caps; sampled every 10 steps
                 # so the host does not wait on the device every step
                 if prev_overflow is not None and bool(prev_overflow[0]):
@@ -366,10 +460,13 @@ class Trainer:
                     prev_overflow = None
                 if (strat_cfg.refine_start_iter <= step < strat_cfg.refine_stop_iter
                         and (step + 1) % strat_cfg.refine_every == 0):
-                    self.state, _ = self._refine_step(self.state)
-                    if int(G.n_alive(self.state.alive)) / self.capacity > 0.9:
+                    self.state, rinfo = self._refine_step(self.state)
+                    metrics = {**metrics, **rinfo}
+                    # MCMC keeps its capacity (cap_max sized it)
+                    if (not is_mcmc and int(G.n_alive(self.state.alive))
+                            / self.capacity > 0.9):
                         self._grow_capacity(self.capacity * 2)
-                if ((step + 1) % strat_cfg.reset_every == 0
+                if (not is_mcmc and (step + 1) % strat_cfg.reset_every == 0
                         and step < strat_cfg.refine_stop_iter):
                     self.state = self._reset_step(self.state)
 
@@ -416,19 +513,26 @@ class Trainer:
         self._build_steps()
 
     def eval(self, step: int, stage: str = "val") -> Dict[str, float]:
-        """PSNR and SSIM over the validation split; stats JSON under
+        """PSNR and SSIM over the validation split, and with the bilateral
+        grid ``cc_psnr`` (PSNR after the per-channel quadratic
+        ``color_correct`` fitted to the ground truth); stats JSON under
         ``stats/``. LPIPS is None: its weights are not in the repository,
         as the JAX Trainer reports without them."""
-        psnrs, ssims, times = [], [], []
+        cc = self.cfg.use_bilateral_grid
+        psnrs, ssims, cc_psnrs, times = [], [], [], []
         for i in self.val_idx:
             b = self._batch(np.array([i]))
             t0 = time.time()
-            rgb, _, _ = self._eval_render(self.state, b["camtoworld"], b["K"])
+            rgb, _, _ = self._eval_render(self.state, b["camtoworld"], b["K"],
+                                          b["image_id"])
             if rgb.is_cuda:
                 torch.cuda.synchronize(rgb.device)
             times.append(time.time() - t0)
             psnrs.append(float(L.psnr(rgb, b["image"])))
             ssims.append(float(ssim_fn(rgb, b["image"])))
+            if cc:
+                cc_psnrs.append(float(L.psnr(BG.color_correct(rgb[0], b["image"][0]),
+                                             b["image"][0])))
         stats = {
             "psnr": float(np.mean(psnrs)) if psnrs else 0.0,
             "ssim": float(np.mean(ssims)) if ssims else 0.0,
@@ -436,6 +540,8 @@ class Trainer:
             "ellipse_time": float(np.mean(times[1:])) if len(times) > 1 else 0.0,
             "num_GS": int(G.n_alive(self.state.alive)),
         }
+        if cc:
+            stats["cc_psnr"] = float(np.mean(cc_psnrs)) if cc_psnrs else 0.0
         if self.device.type == "cuda":
             stats["mem"] = torch.cuda.max_memory_allocated(self.device) / 2**30
         with open(os.path.join(self.result_dir, "stats",
@@ -446,56 +552,168 @@ class Trainer:
     # ------------------------------------------------------------------
     def save_checkpoint(self, step: int) -> str:
         """npz with the JAX Trainer's keys: params, Adam moments and
-        count, alive, step and the strategy state."""
+        count, alive, step, the strategy state, and the pose, bilateral
+        and appearance state with their Adam states where those are on."""
         path = os.path.join(self.result_dir, "ckpts", f"ckpt_{step}.npz")
         st = self.state
         host = lambda x: x.detach().cpu().numpy()
         flat = {}
-        for prefix, tree in (("params", st.params), ("opt_m", st.opt_state.m),
-                             ("opt_v", st.opt_state.v)):
+
+        def add(prefix, tree):
             flat.update({f"{prefix}['{k}']": host(v) for k, v in tree.items()})
+
+        def add_opt(prefix, o):
+            add(f"{prefix}_m", o.m)
+            add(f"{prefix}_v", o.v)
+            flat[f"{prefix}_count"] = host(o.count)
+
+        add("params", st.params)
+        add("opt_m", st.opt_state.m)
+        add("opt_v", st.opt_state.v)
         flat["opt_count"] = host(st.opt_state.count)
         flat["alive"] = host(st.alive)
         flat["step"] = np.asarray(st.step, np.int32)
         flat["strat_grad2d"] = host(st.strat.grad2d)
         flat["strat_count"] = host(st.strat.count)
+        if st.pose_params is not None:
+            flat["pose_params"] = host(st.pose_params)
+            add_opt("pose", st.pose_opt_state)
+        if st.bil_grids is not None:
+            flat["bil_grids"] = host(st.bil_grids)
+            add_opt("bil", st.bil_opt_state)
+        if st.app_params is not None:
+            add("app", st.app_params)
+            add_opt("app", st.app_opt_state)
         np.savez(path, **flat)
         return path
 
     def load_checkpoint(self, path: str):
-        """Resume from an npz written by this Trainer or the JAX one."""
+        """Resume from an npz written by this Trainer or the JAX one. State
+        the checkpoint does not hold (an option it was saved without) keeps
+        this Trainer's."""
         dev = self.device
         with np.load(path) as z:
-            extra = [k for k in z.files
-                     if k.split("[")[0] in ("pose_params", "pose_m", "bil_grids",
-                                            "bil_m", "app", "app_m")]
-            if extra:
-                raise NotImplementedError(
-                    f"{path}: pose / bilateral / appearance state ({extra[0]}, ...) "
-                    "is not ported yet")
+            def tensor(k):
+                return torch.as_tensor(z[k], device=dev)
 
             def tree(prefix):
-                return {k.split("['")[1].rstrip("']"): torch.as_tensor(z[k], device=dev)
+                return {k.split("['")[1].rstrip("']"): tensor(k)
                         for k in z.files if k.startswith(prefix + "[")}
 
-            params = tree("params")
-            alive = torch.as_tensor(z["alive"], device=dev)
-            strat = (S.StrategyState(
-                grad2d=torch.as_tensor(z["strat_grad2d"], device=dev),
-                count=torch.as_tensor(z["strat_count"], device=dev))
-                if "strat_grad2d" in z.files
-                else S.strategy_init(alive.shape[0], dev))
+            def opt_tree(prefix, current):
+                m = tree(prefix + "_m")
+                if not m:
+                    return current
+                return opt.AdamState(m=m, v=tree(prefix + "_v"),
+                                     count=tensor(prefix + "_count"))
+
+            st = self.state
+            alive = tensor("alive")
+            strat = (S.StrategyState(grad2d=tensor("strat_grad2d"),
+                                     count=tensor("strat_count"))
+                     if "strat_grad2d" in z.files
+                     else S.strategy_init(alive.shape[0], dev))
             self.state = TrainState(
-                params=params,
-                opt_state=opt.AdamState(
-                    m=tree("opt_m"), v=tree("opt_v"),
-                    count=torch.as_tensor(z["opt_count"], device=dev)),
-                alive=alive, strat=strat, step=int(z["step"]))
+                params=tree("params"),
+                opt_state=opt.AdamState(m=tree("opt_m"), v=tree("opt_v"),
+                                        count=tensor("opt_count")),
+                alive=alive, strat=strat, step=int(z["step"]),
+                pose_params=(tensor("pose_params") if "pose_params" in z.files
+                             else st.pose_params),
+                pose_opt_state=opt_tree("pose", st.pose_opt_state),
+                bil_grids=tensor("bil_grids") if "bil_grids" in z.files else st.bil_grids,
+                bil_opt_state=opt_tree("bil", st.bil_opt_state),
+                app_params=tree("app") or st.app_params,
+                app_opt_state=opt_tree("app", st.app_opt_state))
         if alive.shape[0] != self.capacity:
             # saved after a capacity growth: resize the caps with it
             self.capacity = int(alive.shape[0])
             self.caps = self._choose_caps(self.capacity)
             self._build_steps()
+
+    # ------------------------------------------------------------------
+    def run(self):
+        """With ``Config.ckpt``: load the checkpoint(s), evaluate, render
+        the trajectory and, with ``compression="png"``, evaluate the
+        compressed splats; returns the eval stats. Otherwise train and
+        return the history."""
+        if self.cfg.ckpt:
+            ckpts = self.cfg.ckpt
+            for path in ckpts if isinstance(ckpts, (list, tuple)) else [ckpts]:
+                self.load_checkpoint(path)
+            step = self.state.step
+            stats = self.eval(step)
+            self.render_traj(step)
+            if self.cfg.compression == "png":
+                self.run_compression(step)
+            return stats
+        return self.train()
+
+    def render_traj(self, step: int, n_frames: int = 60) -> str:
+        """Render the ``Config.render_traj_path`` trajectory (interp,
+        ellipse_z, ellipse_y or spiral) through the training cameras:
+        RGB | normalized depth frames side by side, PNGs under
+        ``videos/traj_<step>/`` (and an mp4 beside them where an ``ffmpeg``
+        binary is on the PATH). Returns the frames' directory."""
+        c2ws = self.scene.camtoworlds
+        if len(c2ws) > 10:
+            c2ws = c2ws[5:-5]  # the ends are trimmed, as the reference does
+        kind = self.cfg.render_traj_path
+        if kind == "interp":
+            path = traj_mod.generate_interpolated_path(
+                c2ws, max(1, n_frames // max(len(c2ws) - 1, 1)))
+        elif kind == "ellipse_z":
+            path = traj_mod.generate_ellipse_path_z(c2ws, n_frames=n_frames)
+        elif kind == "ellipse_y":
+            path = traj_mod.generate_ellipse_path_y(c2ws, n_frames=n_frames)
+        elif kind == "spiral":
+            path = traj_mod.generate_spiral_path(c2ws, n_frames=n_frames)
+        else:
+            raise ValueError(f"unknown render_traj_path {kind!r}")
+        out_dir = os.path.join(self.result_dir, "videos", f"traj_{step}")
+        os.makedirs(out_dir, exist_ok=True)
+        t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        K = t(self.scene.Ks[len(self.scene.Ks) // 2])[None]
+        image_id = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        for fi, c2w in enumerate(path):
+            rgb, _, depth = self._eval_render(self.state, t(c2w)[None], K, image_id)
+            rgb = rgb[0].cpu().numpy()
+            d = depth[0, ..., 0].cpu().numpy()
+            lo, hi = np.percentile(d, 1), np.percentile(d, 99)
+            dn = np.clip((d - lo) / max(hi - lo, 1e-6), 0, 1)
+            frame = np.concatenate([rgb, np.repeat(dn[..., None], 3, axis=-1)], axis=1)
+            Image.fromarray((frame * 255).astype(np.uint8)).save(
+                os.path.join(out_dir, f"{fi:04d}.png"))
+        if shutil.which("ffmpeg"):
+            mp4 = os.path.join(self.result_dir, "videos", f"traj_{step}.mp4")
+            subprocess.run(
+                ["ffmpeg", "-y", "-framerate", "30", "-i",
+                 os.path.join(out_dir, "%04d.png"), "-pix_fmt", "yuv420p", mp4],
+                check=False, capture_output=True)
+        return out_dir
+
+    def run_compression(self, step: int) -> Dict[str, float]:
+        """PNG compression round trip: compress the alive splats under
+        ``compression/``, decompress them into the capacity buffers and
+        evaluate them as stage "compress"; the Trainer's state is left as
+        it was."""
+        out_dir = os.path.join(self.result_dir, "compression")
+        host = {k: v.detach().cpu().numpy() for k, v in self.state.params.items()}
+        comp.compress(out_dir, host, self.state.alive.cpu().numpy())
+        params_np, _ = comp.decompress(out_dir)
+        n = params_np["opacities"].shape[0]
+        saved = self.state
+        new_params = {}
+        for k, v in host.items():
+            buf = v.copy()
+            buf[:n] = params_np[k]
+            new_params[k] = torch.as_tensor(buf, device=self.device)
+        alive = torch.arange(self.capacity, device=self.device) < n
+        self.state = self.state._replace(params=new_params, alive=alive)
+        try:
+            return self.eval(step, stage="compress")
+        finally:
+            self.state = saved
 
     # ------------------------------------------------------------------
     def render_view(self, camtoworld: np.ndarray, K: np.ndarray,
@@ -504,5 +722,7 @@ class Trainer:
         ``camera_model`` overrides the training model (the viewer's
         pinhole <-> spherical toggle)."""
         t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=self.device)[None]
-        rgb, _, depth = self._eval_render(self.state, t(camtoworld), t(K), camera_model)
+        image_id = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        rgb, _, depth = self._eval_render(self.state, t(camtoworld), t(K), image_id,
+                                          camera_model)
         return rgb[0].cpu().numpy(), depth[0].cpu().numpy()

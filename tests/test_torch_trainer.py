@@ -18,8 +18,8 @@ scene (images within 1e-5, every other field equal).
   the resumed run's losses track the JAX run's.
 The port's own Trainer: densification changes the alive count within its
 capacity, the opacity reset runs, eval reports psnr / ssim and lpips
-None, its checkpoint renders through ``app.viewer``, and what is not
-ported is refused.
+None, its checkpoint renders through ``app.viewer``, mesh training is
+refused and CUDA is the default device.
 """
 
 import json
@@ -162,13 +162,13 @@ def test_trainer_densifies_and_checkpoints(scene, tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(scene, tmp_path):
+    """Mesh (multi-GPU) training is the one refusal left; entry points run
+    on CUDA unless asked for the CPU, and raise without a card."""
     ok = dict(result_dir=str(tmp_path), capacity=512, camera_model="pinhole")
-    for bad in (dict(pose_opt=True), dict(app_opt=True), dict(use_bilateral_grid=True),
-                dict(strategy=MCMCStrategyCfg())):
-        with pytest.raises(NotImplementedError):
-            Trainer(Config(**ok, **bad), SceneData(*scene), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="Slice E"):
         Trainer(Config(**ok), SceneData(*scene), mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(Config(**ok), SceneData(*scene))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trainer(Config(**ok, strategy=MCMCStrategyCfg()), SceneData(*scene))
