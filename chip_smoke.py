@@ -78,11 +78,45 @@ Phases (any failure exits non-zero and prints no result line):
      (b) app_opt, (c) MCMCStrategyCfg's defaults refining from step 0
      every 3 (n_relocated, n_grown): finite losses, a checkpoint that loads
      back equal, peak memory; (vi) each part's wall time;
+  7. the multi-GPU slice on one card (run before phase 6 prints): (a) the
+     phase-4 scene's supertile grid (1M gaussians, SH 3, 1280x720; 920
+     supertiles) in 4 slabs of 230, pinhole front and spherical: each
+     slab through render.rasterization.composite_slab (the per-rank body
+     of parallel.tile_sharded and parallel.ring_sharded), from the whole
+     projection, at its slab offset; the stitched slabs against the
+     unsharded render (rgb and alpha within 1e-5 abs on the tiles that
+     never stopped early; on those that may have, since a slab's chunk
+     boundaries move the stop, within 2 TERM_THRESH times the largest
+     colour, the tail a stop may drop, and slab 1's output at an offset
+     one supertile off read for scale; accumulated depth within 1e-4),
+     the slabs' summed gradients (each
+     slab's backward, then the projection's) against the unsharded step's
+     within 5e-4 of each gradient's max; each slab's build + composite
+     and fwd+bwd time, the slowest, the unsharded ones beside, the bytes
+     a gauss rank would send per step; at slab 1's offset (pinhole)
+     stream_fwd (bits), stream_bwd (KERNEL_TOL), keyed_perm and seg_reduce
+     (bits), and seg_broadcast (bits, at both poses: the spherical slab's
+     segmented parents too)
+     against their plain versions, and every slab's build through the
+     seg_broadcast kernel equal to the default expansion's; (b) tile_fwd
+     and tile_bwd at a tile offset on phase 4b's pinhole layout (a slab of
+     900 of its 3,600 tiles, built with tile_lo): the slab's forward equal
+     to the whole layout's tiles, both kernels against their plain
+     versions; (c) the mesh Trainer in a world of one rank on NCCL
+     (multihost.initialize with a local address, global_mesh(1, 1),
+     Trainer(..., mesh=mesh)): phase 5b's scene, config and capacity, 6
+     steps with a refine, the first loss within 1e-5 rel of phase 5b's,
+     its gathered checkpoint through the viewer's loader, its sharded
+     checkpoint round-tripped equal, the process group destroyed;
   6. the kernels line (JSON; the forward rows also carry spherical_ms and
      spherical_bound_ms; the seg_reduce row is the stream reduction path,
      with its kernel's and its tiled launch's figures beside), then the
      card line, then the result line. Each row also carries
-     stage_launches, its launches in phase 5e (i).
+     stage_launches, its launches in phase 5e (i), slab_launches, its
+     launches on phase 7's path runs (the comparisons with the plain
+     versions not counted; required > 0), and offset_ms, its time at a
+     nonzero slab offset in phase 7 (pinhole, slab 1 of 4; device time for
+     keyed_perm, seg_reduce and seg_broadcast).
 """
 
 import contextlib
@@ -348,14 +382,15 @@ def timed_once(fn):
     return out, a.elapsed_time(b)
 
 
-def compare_tile_fwd(name, cfg, starts, packed):
-    """tile_fwd kernel vs its plain version, every output bit for bit ->
-    (max abs err, kernel out, plain ms)."""
+def compare_tile_fwd(name, cfg, starts, packed, tile_offset=0):
+    """tile_fwd kernel vs its plain version (a slab's at its
+    ``tile_offset``), every output bit for bit -> (max abs err, kernel out,
+    plain ms)."""
     import torch
     from splat_one_tpu_torch.ops import tile_raster as tr
 
-    out_k = tr.tile_fwd(cfg, starts, packed)
-    out_p, plain_ms = timed_once(lambda: tr.tile_fwd_plain(cfg, starts, packed))
+    out_k = tr.tile_fwd(cfg, starts, packed, tile_offset)
+    out_p, plain_ms = timed_once(lambda: tr.tile_fwd_plain(cfg, starts, packed, tile_offset))
     worst = column_err(name, "tile_fwd", out_k[:, :5].transpose(0, 1).reshape(5, -1).T,
                        out_p[:, :5].transpose(0, 1).reshape(5, -1).T)
     require(bool(torch.equal(out_k, out_p)), f"{name}: tile_fwd differs from its plain "
@@ -365,17 +400,19 @@ def compare_tile_fwd(name, cfg, starts, packed):
     return worst, out_k, plain_ms
 
 
-def compare_tile_bwd(name, cfg, starts, packed, out, gout):
-    """tile_bwd kernel vs its plain version, and a second launch bit for
-    bit -> (max abs err, kernel rows, plain ms)."""
+def compare_tile_bwd(name, cfg, starts, packed, out, gout, tile_offset=0):
+    """tile_bwd kernel vs its plain version (a slab's at its
+    ``tile_offset``), and a second launch bit for bit -> (max abs err,
+    kernel rows, plain ms)."""
     import torch
     from splat_one_tpu_torch.ops import intersect as itx
     from splat_one_tpu_torch.ops import tile_raster as tr
 
-    pg_k = tr.tile_bwd(cfg, starts, packed, out, gout)
-    require(bool(torch.equal(pg_k, tr.tile_bwd(cfg, starts, packed, out, gout))),
+    args = (cfg, starts, packed, out, gout, tile_offset)
+    pg_k = tr.tile_bwd(*args)
+    require(bool(torch.equal(pg_k, tr.tile_bwd(*args))),
             f"{name}: two tile_bwd launches differ")
-    pg_p, plain_ms = timed_once(lambda: tr.tile_bwd_plain(cfg, starts, packed, out, gout))
+    pg_p, plain_ms = timed_once(lambda: tr.tile_bwd_plain(*args))
     require(not bool(pg_k[:, itx.N_GROWS:].any()), f"{name}: tile_bwd pad columns")
     return column_err(name, "tile_bwd", pg_k, pg_p), pg_k, plain_ms
 
@@ -409,23 +446,15 @@ def tile_fwd_pairs(cfg, starts, packed, out):
     return int((processed & live).sum()) * cfg.npix
 
 
-def seg_broadcast_problem(proj, w, h, camera_model):
-    """The stream builder's expansion problem for a projection:
-    ((sx0, sy0, span, ka, offsets, depth, counts), its SlotGrid), as
-    stream_isect.build_stream_intersections hands it to seg_broadcast."""
-    import torch
-    from splat_one_tpu_torch.ops import seg_broadcast as sgb
+def seg_broadcast_problem(proj, w, h, camera_model, st_lo=0, n_st_local=0):
+    """The stream builder's expansion problem for a projection (or one
+    slab of it): ((sx0, sy0, span, ka, offsets, depth, counts), its
+    SlotGrid), as stream_isect.build_stream_intersections hands it to
+    seg_broadcast."""
     from splat_one_tpu_torch.ops import stream_isect as si
 
-    C, N = proj.depths.shape
-    _, _, sw, sh = si.supertile_grid(w, h, 16)
-    sx0, span_x, sy0, span_y = si.parent_spans(proj, w, h, 16, si.SS, camera_model)
-    counts = span_x * span_y
-    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
-    prob = (sx0, sy0, torch.clamp(span_x, min=1), torch.zeros_like(counts), offsets,
-            proj.depths.reshape(-1), counts)
-    return prob, sgb.SlotGrid(n=N, sw=sw, ns=sw * sh, cs=C * sw * sh,
-                              wrap=camera_model == "spherical")
+    *prob, grid = si.slot_parents(proj, w, h, 16, si.SS, camera_model, st_lo, n_st_local)
+    return tuple(prob), grid
 
 
 def compare_seg_broadcast(name, prob, grid, exp_cap, slab):
@@ -607,15 +636,15 @@ def stream_inputs(sc, dev):
     return cfg, isect.st_starts, packed, isect
 
 
-def compare_fwd(name, cfg, st_starts, packed):
-    """Kernel vs plain version on the same inputs; returns (max_abs_err,
-    kernel out, plain out)."""
+def compare_fwd(name, cfg, st_starts, packed, tile_offset=0):
+    """Kernel vs plain version on the same inputs (a slab's at its
+    ``tile_offset``); returns (max_abs_err, kernel out, plain out)."""
     import torch
     from splat_one_tpu_torch.ops import stream_raster as sr
 
-    out_k = sr.stream_fwd(cfg, st_starts, packed)
+    out_k = sr.stream_fwd(cfg, st_starts, packed, tile_offset)
     torch.cuda.synchronize()
-    out_p = sr.stream_fwd_plain(cfg, st_starts, packed)
+    out_p = sr.stream_fwd_plain(cfg, st_starts, packed, tile_offset)
     torch.cuda.synchronize()
     worst = 0.0
     parts = []
@@ -637,9 +666,10 @@ def compare_fwd(name, cfg, st_starts, packed):
     return worst, out_k, out_p
 
 
-def gated_pairs(cfg, st_starts, packed, out):
+def gated_pairs(cfg, st_starts, packed, out, tile_offset=0):
     """(pixel, slot) evaluations this run's data needs: gated slots of every
-    tile's processed chunks (k < n_chunks of the tile), times 256 pixels."""
+    tile's processed chunks (k < n_chunks of the tile), times 256 pixels
+    (a slab's cells at ``tile_offset``)."""
     import torch
     from splat_one_tpu_torch.ops import stream_raster as sr
 
@@ -649,7 +679,7 @@ def gated_pairs(cfg, st_starts, packed, out):
     s0, s1 = starts[:-1], starts[1:]
     base0 = torch.div(s0, G, rounding_mode="floor") * G
     nch = out[:, :, sr.CH_NCHUNKS, 0].long()  # [CS, NT]
-    _, _, tx, ty = sr._tile_geometry(cfg, torch.arange(cfg.cs, device=dev))
+    _, _, tx, ty = sr._tile_geometry(cfg, torch.arange(cfg.cs, device=dev) + tile_offset)
     total = 0
     slots = torch.arange(G, device=dev)
     for k in range(int(nch.max()) if nch.numel() else 0):
@@ -810,23 +840,23 @@ def column_err(name, label, got, want):
     return float(err.max())
 
 
-def compare_bwd(name, cfg, st_starts, st_starts_al, packed, out, gout, m0):
-    """Backward kernel vs plain version on the same inputs (key column
-    exactly, gradient columns within KERNEL_TOL; a second launch bit for
-    bit), then the reduction of the kernel's rows: keyed_perm and the
-    segmented reduce kernel each bit for bit against their plain versions.
-    Returns (max abs err bwd, max abs err reduce, kernel rows, perm,
-    bounds)."""
+def compare_bwd(name, cfg, st_starts, st_starts_al, packed, out, gout, m0, tile_offset=0):
+    """Backward kernel vs plain version on the same inputs (a slab's at
+    its ``tile_offset``; key column exactly, gradient columns within
+    KERNEL_TOL; a second launch bit for bit), then the reduction of the
+    kernel's rows: keyed_perm and the segmented reduce kernel each bit for
+    bit against their plain versions. Returns (max abs err bwd, max abs
+    err reduce, kernel rows, perm, bounds)."""
     import torch
     from splat_one_tpu_torch.ops import stream_isect as si
     from splat_one_tpu_torch.ops import stream_raster as sr
 
-    pg_k = sr.stream_bwd(cfg, st_starts, st_starts_al, packed, out, gout)
-    require(bool(torch.equal(pg_k, sr.stream_bwd(cfg, st_starts, st_starts_al, packed,
-                                                 out, gout))),
+    args = (cfg, st_starts, st_starts_al, packed, out, gout, tile_offset)
+    pg_k = sr.stream_bwd(*args)
+    require(bool(torch.equal(pg_k, sr.stream_bwd(*args))),
             f"{name}: two stream_bwd launches differ")
     torch.cuda.synchronize()
-    pg_p = sr.stream_bwd_plain(cfg, st_starts, st_starts_al, packed, out, gout)
+    pg_p = sr.stream_bwd_plain(*args)
     torch.cuda.synchronize()
     require(bool(torch.equal(pg_k[:, si.GCOL_KEY:], pg_p[:, si.GCOL_KEY:])),
             f"{name}: backward key / pad columns differ")
@@ -970,6 +1000,20 @@ def ring_scene(dev):
         camera_model="pinhole")
 
 
+def phase5b_config(result_dir):
+    """Phase 5b's Trainer configuration (phase 7c trains it on a mesh)."""
+    from splat_one_tpu_torch.train.config import Config
+    from splat_one_tpu_torch.train.strategy import DefaultStrategyCfg
+
+    return Config(
+        result_dir=result_dir, camera_model="pinhole", sh_degree=3, batch_size=1,
+        init_type="random", init_num_pts=N_SERVE, capacity=TRAIN_CAPACITY,
+        max_steps=TRAIN_STEPS, eval_steps=[TRAIN_STEPS], save_steps=[TRAIN_STEPS],
+        tb_every=TRAIN_STEPS, test_every=8,
+        strategy=DefaultStrategyCfg(refine_start_iter=2, refine_stop_iter=100,
+                                    refine_every=3, reset_every=5))
+
+
 def training_phase(dev, card, sc, max_err):
     """Phase 5 (see the module docstring). ``sc`` is the serving scene,
     bench.py's; ``max_err`` collects kernel-vs-plain errors. Returns the
@@ -982,8 +1026,6 @@ def training_phase(dev, card, sc, max_err):
     from splat_one_tpu_torch.ops import stream_raster as sr
     from splat_one_tpu_torch.ops.projection import Projected, project_gaussians
     from splat_one_tpu_torch.render.rasterization import rasterization
-    from splat_one_tpu_torch.train.config import Config
-    from splat_one_tpu_torch.train.strategy import DefaultStrategyCfg
     from splat_one_tpu_torch.train.trainer import Trainer
     from splat_one_tpu_torch.utils import cuda_build
 
@@ -1254,15 +1296,8 @@ def training_phase(dev, card, sc, max_err):
     log(f"  GT render of {N_VIEWS} views: {time.perf_counter() - t0:.1f} s")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        tcfg = Config(
-            result_dir=tmp, camera_model="pinhole", sh_degree=3, batch_size=1,
-            init_type="random", init_num_pts=N, capacity=TRAIN_CAPACITY,
-            max_steps=TRAIN_STEPS, eval_steps=[TRAIN_STEPS], save_steps=[TRAIN_STEPS],
-            tb_every=TRAIN_STEPS, test_every=8,
-            strategy=DefaultStrategyCfg(refine_start_iter=2, refine_stop_iter=100,
-                                        refine_every=3, reset_every=5))
         t0 = time.perf_counter()
-        trainer = Trainer(tcfg, scene)
+        trainer = Trainer(phase5b_config(tmp), scene)
         log(f"  Trainer init (random init, 3-NN scales on the host): "
             f"{time.perf_counter() - t0:.1f} s")
         n0 = int(trainer.state.alive.sum())
@@ -1321,7 +1356,8 @@ def training_phase(dev, card, sc, max_err):
     tiled_counts = tiled_trainer_phase(dev, card, scene, losses[0])
     synthetic_phase(dev, card)
     tile_bwd_row["launches"] = tiled_counts.get("tile_bwd", 0)
-    return {"launches": tcounts, "tiled_launches": tiled_counts,
+    return {"launches": tcounts, "tiled_launches": tiled_counts, "scene": scene,
+            "first_loss": losses[0],
             "tile_bwd": tile_bwd_row, "seg_broadcast": sb_row, "kernels": [
         dict(name="stream_bwd", route="cuda", source="splat_one_tpu_torch/csrc/stream_bwd.cu",
              replaces="splat_one_tpu/ops/stream_raster.py:397",
@@ -2201,6 +2237,388 @@ def train_stage_phase(dev, card):
 
 
 # ---------------------------------------------------------------- main
+# ------------------------------------------- phase 7: the multi-GPU slice
+SLABS = 4  # phase 7: the gauss ranks whose slabs one card runs in turn
+# the floats of one gaussian's projected fields in the gauss exchange
+# (parallel/comm.py gather_gauss): means2d 2, conic 3, depth, radius,
+# rgb 3, opacity, valid
+FIELD_FLOATS = 12
+
+
+def never_stopped(alpha, ts=16):
+    """[C, H, W] bool from an image's alpha [C, H, W, 1]: the pixel's
+    16 px tile has a pixel with T = 1 - alpha at or above TERM_THRESH, so
+    its walk never stopped before the end of its stream (T only falls).
+    The tile's pixels past the image's edge count as stopped."""
+    import torch
+    from splat_one_tpu_torch.ops.stream_raster import TERM_THRESH
+
+    T = 1.0 - alpha[..., 0]
+    C, H, W = T.shape
+    Tp = torch.nn.functional.pad(T, (0, -W % ts, 0, -H % ts))
+    m = Tp.reshape(C, Tp.shape[1] // ts, ts, Tp.shape[2] // ts, ts).amax((2, 4))
+    m = m.repeat_interleave(ts, 1).repeat_interleave(ts, 2)[:, :H, :W]
+    return m >= TERM_THRESH
+
+
+def slab_phase(dev, card, sc, scene, first_loss, max_err):
+    """Phase 7 (see the module docstring). ``sc`` is the serving scene,
+    ``scene`` and ``first_loss`` phase 5b's. Returns (the launch counts of
+    the phase's path runs, each kernel's ms at a nonzero slab offset)."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+    from splat_one_tpu_torch.app.viewer import load_checkpoint_params
+    from splat_one_tpu_torch.ops import intersect as itx
+    from splat_one_tpu_torch.ops import seg_broadcast as sgb
+    from splat_one_tpu_torch.ops import seg_reduce as sgr
+    from splat_one_tpu_torch.ops import stream_isect as si
+    from splat_one_tpu_torch.ops import stream_raster as sr
+    from splat_one_tpu_torch.ops import tile_raster as tr
+    from splat_one_tpu_torch.ops.projection import Projected, project_gaussians
+    from splat_one_tpu_torch.parallel import multihost
+    from splat_one_tpu_torch.render.rasterization import (composite_slab, rasterization,
+                                                          slab_cfg)
+    from splat_one_tpu_torch.train.trainer import Trainer
+    from splat_one_tpu_torch.utils import cuda_build
+
+    W, H, N, n = W_SERVE, H_SERVE, N_SERVE, SLABS
+    path = collections.Counter()
+
+    @contextlib.contextmanager
+    def on_path():
+        """The block's launches count as the slab path's, not a comparison's."""
+        torch.cuda.synchronize()
+        before = dict(cuda_build.launch_counts)
+        yield
+        torch.cuda.synchronize()
+        for k, v in cuda_build.launch_counts.items():
+            path[k] += v - before.get(k, 0)
+
+    def timed(fn, reps=3):  # median host ms of fn() ending in synchronize()
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    t_phase = time.perf_counter()
+    names = ("means", "quats", "scales", "opac", "sh")
+    leaves = [torch.tensor(sc[k], device=dev, requires_grad=True) for k in names]
+    vm, K = (torch.as_tensor(sc[k], device=dev) for k in ("viewmats", "Ks"))
+    diff = (0, 1, 2, 4, 5)  # the Projected fields with gradients
+    offset_ms = {}
+    log(f"phase 7a: the multi-GPU slice on one card: the supertile grid of the phase-4 scene "
+        f"({N} gaussians, SH 3, {W}x{H}) in {n} slabs, each slab through "
+        f"composite_slab, the per-rank body of parallel.tile_sharded and "
+        f"parallel.ring_sharded | {card}")
+
+    def body(i, fields, caps, cm):  # slab i's output [cs_local, NT, OUT_CH, P]
+        return composite_slab(fields, i, n, W, H, 16, caps, cm)[0]
+
+    for cm in ("pinhole", "spherical"):
+        with torch.no_grad():
+            psg = project_gaussians(*(x.detach() for x in leaves[:4]), vm, K, W, H,
+                                    sh_coeffs=leaves[4].detach(), sh_degree=3,
+                                    camera_model=cm)
+        # the caps: the unsharded render's from a warm-up count, one per-slab
+        # budget for every rank from the largest slab's
+        _, _, sgw, sgh = si.supertile_grid(W, H, 16)
+        warm = si.StreamCaps.choose(N, 1, sgw * sgh, avg_supertiles_per_gaussian=4.0)
+        n_full = int(si.build_stream_intersections(psg, W, H, 16, warm,
+                                                   camera_model=cm).n_isect)
+        caps_full = si.StreamCaps.choose_observed(n_full, sgw * sgh)
+        _, cs_local, cs_global = slab_cfg(warm, W, H, 16, 1, N, n)
+        warm_s = si.StreamCaps.choose(N, 1, cs_local, avg_supertiles_per_gaussian=4.0)
+        n_slab = [int(si.build_stream_intersections(
+            psg, W, H, 16, warm_s, camera_model=cm, st_lo=i * cs_local,
+            n_st_local=cs_local).n_isect) for i in range(n)]
+        require(sum(n_slab) == n_full, f"{cm}: the slabs' intersections {n_slab} do not add "
+                f"up to the grid's {n_full}")
+        caps = si.StreamCaps.choose_observed(max(n_slab), cs_local)
+        cfg_s = slab_cfg(caps, W, H, 16, 1, N, n, cm)[0]
+        full_cfg = dataclasses.replace(cfg_s, cs_local=0)
+        log(f"  {cm}: {cs_global} supertiles in {n} slabs of {cs_local} "
+            f"({n * cs_local - cs_global} phantom); slab intersections {n_slab} (the whole "
+            f"grid's {n_full}); per-slab caps exp_cap {caps.exp_cap}")
+
+        # the unsharded step: loss sum(rgb) + sum(depth) + sum(alpha), RGB+D
+        def unsharded():
+            return rasterization(*leaves[:4], leaves[4], vm, K, W, H, sh_degree=3,
+                                 render_mode="RGB+D", camera_model=cm, caps=caps_full)
+
+        def unsharded_step():
+            r, a, _ = unsharded()
+            return torch.autograd.grad(r.sum() + a.sum(), leaves)
+
+        render_u, alpha_u, info_u = unsharded()
+        require(not bool(info_u["overflow"]), f"{cm}: unsharded overflow")
+        grads_u = torch.autograd.grad(render_u.sum() + alpha_u.sum(), leaves)
+        render_u, alpha_u = render_u.detach(), alpha_u.detach()
+        with torch.no_grad():
+            req_u = timed(unsharded)
+        step_u = timed(unsharded_step)
+
+        # every slab from the whole projection, stitched
+        proj = project_gaussians(*leaves[:4], vm, K, W, H, sh_coeffs=leaves[4], sh_degree=3,
+                                 camera_model=cm)
+        fields = Projected(*(x.detach().requires_grad_(i in diff) for i, x in enumerate(proj)))
+        with on_path():
+            outs = [body(i, fields, caps, cm) for i in range(n)]
+        rgb, alpha, depth = sr.stream_to_image(full_cfg, torch.cat(outs)[:cs_global])
+        # a tile stops at the first chunk start where all its pixels have
+        # T < TERM_THRESH, and a slab's chunks start elsewhere in a
+        # supertile's stream than the whole grid's: where a tile may have
+        # stopped, one render keeps a tail the other drops, at most
+        # T x colour < TERM_THRESH x the largest colour (ROADMAP Queue 3,
+        # early termination). Those pixels are held to twice that (alpha's
+        # colour is 1), the others to 1e-5
+        c_max = max(1.0, float(fields.colors.detach().abs().max()))
+        stop_bar = (2 * sr.TERM_THRESH * c_max, 2 * sr.TERM_THRESH)
+        free = (never_stopped(alpha_u) & never_stopped(alpha)).detach()
+        d_rgb = (rgb - render_u[..., :3]).detach().abs().amax(-1)
+        d_a = (alpha - alpha_u).detach().abs()[..., 0]
+        e_rgb, e_a = float(d_rgb[free].max()), float(d_a[free].max())
+        s_rgb = float(d_rgb[~free].max()) if bool((~free).any()) else 0.0
+        s_a = float(d_a[~free].max()) if bool((~free).any()) else 0.0
+        e_d = float((depth - render_u[..., 3:]).detach().abs().max())
+        require(max(e_rgb, e_a) <= 1e-5 and s_rgb <= stop_bar[0] and s_a <= stop_bar[1]
+                and e_d <= 1e-4,
+                f"{cm}: stitched slabs vs unsharded: rgb {e_rgb:.2e} / {s_rgb:.2e}, alpha "
+                f"{e_a:.2e} / {s_a:.2e} (tiles that never stopped / may have), depth "
+                f"{e_d:.2e}")
+        # each slab's backward (autograd adds the slabs' field gradients),
+        # then the projection's backward once
+        with on_path():
+            gf = torch.autograd.grad(rgb.sum() + depth.sum() + alpha.sum(),
+                                     [fields[i] for i in diff])
+        gp = torch.autograd.grad([proj[i] for i in diff], leaves, grad_outputs=gf)
+        worst = 0.0
+        for name, a, b in zip(names, gp, grads_u):
+            rel = float((a - b).abs().max() / b.abs().max())
+            require(rel <= GRAD_RTOL, f"{cm}: the slabs' {name} gradient rel err {rel:.2e}")
+            worst = max(worst, rel)
+        log(f"  {cm}: stitched slabs vs the unsharded render: rgb {e_rgb:.2e}, alpha "
+            f"{e_a:.2e} (bar 1e-5) on the {int(free.sum())} pixels of tiles that never "
+            f"stopped early, rgb {s_rgb:.2e} (bar 2 x TERM_THRESH x the largest colour "
+            f"{c_max:.3f} = {stop_bar[0]:.2e}), alpha {s_a:.2e} (bar {stop_bar[1]:.0e}) on the "
+            f"{int((~free).sum())} of tiles that may have; accumulated depth {e_d:.2e} (bar "
+            f"1e-4); the slabs' "
+            f"summed gradients vs the unsharded step's: worst rel {worst:.2e} of each "
+            f"gradient's max (bar {GRAD_RTOL})")
+
+        # per-slab times: the body's forward, and with its backward to the fields
+        leaf = torch.cat(outs).detach()[:cs_global].requires_grad_(True)
+        r2, a2, d2 = sr.stream_to_image(full_cfg, leaf)
+        g_cat, = torch.autograd.grad(r2.sum() + d2.sum() + a2.sum(), leaf)
+        g_cat = torch.cat([g_cat, g_cat.new_zeros((n * cs_local - cs_global,)
+                                                  + tuple(g_cat.shape[1:]))])
+        del outs, rgb, alpha, depth, gf, gp, r2, a2, d2, leaf
+        slab_req, slab_step = [], []
+        for i in range(n):
+            gi = g_cat[i * cs_local:(i + 1) * cs_local]
+            with torch.no_grad():
+                slab_req.append(timed(lambda: body(i, fields, caps, cm)))
+            slab_step.append(timed(lambda: torch.autograd.grad(
+                body(i, fields, caps, cm), [fields[j] for j in diff],
+                grad_outputs=gi)))
+        with torch.no_grad():
+            proj_ms = timed(lambda: project_gaussians(
+                *(x.detach() for x in leaves[:4]), vm, K, W, H, sh_coeffs=leaves[4].detach(),
+                sh_degree=3, camera_model=cm))
+            shard_ms = timed(lambda: project_gaussians(
+                *(x.detach()[:N // n] for x in leaves[:4]), vm, K, W, H,
+                sh_coeffs=leaves[4].detach()[:N // n], sh_degree=3, camera_model=cm))
+        log(f"  {cm}: per slab (host clock, synchronized, median of 3): build + composite "
+            f"{', '.join(f'{x:.3f}' for x in slab_req)} ms; with the backward to the fields "
+            f"{', '.join(f'{x:.3f}' for x in slab_step)} ms; the slowest slab {max(slab_req):.3f}"
+            f" / {max(slab_step):.3f} ms; unsharded request {req_u:.3f} ms, fwd+bwd step "
+            f"{step_u:.3f} ms (both with the projection: of all {N} gaussians "
+            f"{proj_ms:.3f} ms, of one rank's {N // n} {shard_ms:.3f} ms) | {card}")
+        if cm == "pinhole":
+            field_bytes = FIELD_FLOATS * 4 * (N // n)
+            slab_bytes = cs_local * cfg_s.nt * sr.OUT_CH * cfg_s.npix * 4
+            sent = 2 * (n - 1) * field_bytes + (n - 1) * slab_bytes
+            log(f"  the exchange a gauss rank would send per step (1 camera, {n} gauss ranks, "
+                f"counted from the shapes, as a ring all_gather sends them): {n - 1} shards' "
+                f"fields ({field_bytes / 1e6:.1f} MB each) in the fields' all_gather and "
+                f"{n - 1} in its reduce_scatter back, and {n - 1} x {slab_bytes / 1e6:.1f} MB "
+                f"of slab outputs in the slabs' all_gather: {sent / 1e6:.1f} MB")
+
+        # the kernels at slab 1's nonzero offset against their plain versions
+        # (the compositing kernels and the reduction at the pinhole pose:
+        # the spherical slab's 956-chunk stream would hold the plain
+        # backward for minutes; the spherical offsets are in the stitched
+        # render and gradients above)
+        st_lo = cs_local
+        name = f"slab 1 of {n} ({cm}, offset {st_lo})"
+        if cm == "pinhole":
+            isect = si.build_stream_intersections(psg, W, H, 16, caps, camera_model=cm,
+                                                  st_lo=st_lo, n_st_local=cs_local)
+            packed = si.pack_stream(si.build_fields(psg), isect, caps)
+            e, out_k, _ = compare_fwd(name, cfg_s, isect.st_starts, packed, st_lo)
+            max_err["stream_fwd"] = max(max_err["stream_fwd"], e)
+            # the reading of an offset one supertile off, for scale beside
+            # the stitched render's bars: the bars must see it
+            wrong = sr.stream_fwd(cfg_s, isect.st_starts, packed, st_lo + 1)
+            e_off = float((wrong - out_k)[:, :, :4].abs().max())
+            require(e_off > stop_bar[0], f"{name}: an offset one supertile off reads only "
+                    f"{e_off:.2e}, within the stitched render's bar {stop_bar[0]:.2e}")
+            log(f"  {name}: the same slab at an offset one supertile off reads max abs "
+                f"{e_off:.3e} on rgb/alpha against the right offset's output (the stitched "
+                f"render's bars: 1e-5 and {stop_bar[0]:.2e})")
+            del wrong
+            gout = g_cat[st_lo:st_lo + cs_local].contiguous()
+            st, st_al = isect.st_starts, isect.st_starts_al
+            e_b, e_r, pg, perm, bounds = compare_bwd(name, cfg_s, st, st_al, packed, out_k,
+                                                     gout, N, st_lo)
+            max_err["stream_bwd"] = max(max_err["stream_bwd"], e_b)
+            max_err["seg_reduce"] = max(max_err["seg_reduce"], e_r)
+        probs = [seg_broadcast_problem(psg, W, H, cm, i * cs_local, cs_local)
+                 for i in range(n)]
+        windows = [sgb.required_slab(p[4], p[6], caps.exp_cap) for p, _ in probs]
+        prob, grid = probs[1]
+        compare_seg_broadcast(name, prob, grid, caps.exp_cap, windows[1])
+        # every slab's build through the seg_broadcast kernel (the observed
+        # windows): the default expansion's layout
+        want = [si.build_stream_intersections(psg, W, H, 16, caps, camera_model=cm,
+                                              st_lo=i * cs_local, n_st_local=cs_local)
+                for i in range(n)]
+        caps_k = dataclasses.replace(caps, sb_slab=max(windows))
+        with seg_broadcast_path("kernel"), on_path():
+            got = [si.build_stream_intersections(psg, W, H, 16, caps_k, camera_model=cm,
+                                                 st_lo=i * cs_local, n_st_local=cs_local)
+                   for i in range(n)]
+        for i, (a, b) in enumerate(zip(got, want)):
+            for f in a._fields:
+                require(bool(torch.equal(getattr(a, f), getattr(b, f))),
+                        f"{cm}: slab {i}: {f} through the seg_broadcast kernel differs")
+        log(f"  {cm}: the {n} slab builds through the seg_broadcast kernel (windows "
+            f"{windows}{', segmented spherical parents' if grid.segmented else ''}) give the "
+            f"default expansion's layouts")
+        if cm == "pinhole":
+            okv, pbases, offs_pad = sgb.coverage_windows(prob[4], prob[6], caps.exp_cap,
+                                                         windows[1])
+            sb_args = (*prob[:4], prob[5], offs_pad, pbases, caps.exp_cap, grid, windows[1])
+            offset_ms["stream_fwd"] = cuda_ms(
+                lambda: sr.stream_fwd(cfg_s, st, packed, st_lo), 20)
+            offset_ms["stream_bwd"] = cuda_ms(
+                lambda: sr.stream_bwd(cfg_s, st, st_al, packed, out_k, gout, st_lo), 10)
+            offset_ms["keyed_perm"] = device_ms(
+                lambda: sgr.keyed_perm(pg, N), 20, KEYED_PERM_KERNELS
+            ) or cuda_ms(lambda: sgr.keyed_perm(pg, N), 20)
+            offset_ms["seg_reduce"] = device_ms(
+                lambda: sgr.segment_reduce_rows(pg, perm, bounds, si.GCOL_ABSDX), 20,
+                ("seg_reduce_kernel",)
+            ) or cuda_ms(lambda: sgr.segment_reduce_rows(pg, perm, bounds, si.GCOL_ABSDX), 20)
+            offset_ms["seg_broadcast"] = device_ms(
+                lambda: sgb.expand_parent_meta(*sb_args), 20, ("seg_broadcast_kernel",)
+            ) or cuda_ms(lambda: sgb.expand_parent_meta(*sb_args), 20)
+            del isect, packed, out_k, gout, pg, perm, bounds
+        del proj, fields, g_cat, got, want
+        torch.cuda.empty_cache()
+        log(f"  {cm}: done at {time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # (b) the tiled kernels at a tile offset, on the phase-4b layout
+    t_b = time.perf_counter()
+    with torch.no_grad():
+        psg = project_gaussians(*(x.detach() for x in leaves[:4]), vm, K, W, H,
+                                sh_coeffs=leaves[4].detach(), sh_degree=3)
+    cfg_f, st_f, pk_f, _ = tile_inputs(dict(w=W, h=H, camera_model="pinhole"), psg)
+    nt = -(-cfg_f.ct // n)
+    tile_lo = nt
+    caps_t = itx.IsectCaps.choose(N, 1, nt)
+    isect_t = itx.build_intersections(psg, W, H, 16, caps_t, tile_lo=tile_lo,
+                                      n_tiles_local=nt)
+    require(not bool(isect_t.overflow), "tile slab overflow")
+    cfg_t = dataclasses.replace(cfg_f, align_cap=caps_t.align_cap, ct_local=nt)
+    log(f"phase 7b: tile_fwd / tile_bwd at tile offset {tile_lo}: tiles [{tile_lo}, "
+        f"{tile_lo + nt}) of the {cfg_f.ct} of phase 4b's pinhole layout | {card}")
+    tf = [x.detach().clone().requires_grad_(True)
+          for x in (psg.means2d, psg.conics, psg.colors, psg.opacities, psg.depths)]
+    rng = np.random.default_rng(7)
+    gout_t = torch.as_tensor(rng.normal(size=(nt, tr.OUT_CH, cfg_t.npix)).astype(np.float32),
+                             device=dev)
+    with on_path():
+        out_t = tr.composite_tiles(cfg_t, *tf, isect_t, tile_offset=tile_lo)
+        torch.autograd.grad(out_t, tf, grad_outputs=gout_t)
+    out_f = tr.tile_fwd(cfg_f, st_f, pk_f)
+    require(bool(torch.equal(out_t.detach(), out_f[tile_lo:tile_lo + nt])),
+            "the tile slab's forward differs from the whole layout's tiles")
+    del out_f, pk_f, st_f
+    packed_t = itx.pack_fields(psg.means2d, psg.conics, psg.colors, psg.opacities,
+                               psg.depths, isect_t)
+    st_t = isect_t.tile_starts
+    name = f"tile slab 1 of {n} (offset {tile_lo})"
+    e, out_k, _ = compare_tile_fwd(name, cfg_t, st_t, packed_t, tile_lo)
+    max_err["tile_fwd"] = max(max_err["tile_fwd"], e)
+    e_b, _, _ = compare_tile_bwd(name, cfg_t, st_t, packed_t, out_k, gout_t, tile_lo)
+    max_err["tile_bwd"] = max(max_err["tile_bwd"], e_b)
+    offset_ms["tile_fwd"] = cuda_ms(lambda: tr.tile_fwd(cfg_t, st_t, packed_t, tile_lo), 20)
+    offset_ms["tile_bwd"] = cuda_ms(
+        lambda: tr.tile_bwd(cfg_t, st_t, packed_t, out_k, gout_t, tile_lo), 10)
+    log(f"  the slab's forward equals the whole layout's tiles bit for bit; tile_fwd "
+        f"{offset_ms['tile_fwd']:.4f} ms, tile_bwd {offset_ms['tile_bwd']:.4f} ms at the "
+        f"offset (CUDA events) | {card}")
+    log(f"  at slab 1's offsets (pinhole): stream_fwd {offset_ms['stream_fwd']:.4f} ms, "
+        f"stream_bwd {offset_ms['stream_bwd']:.4f} ms (CUDA events); keyed_perm "
+        f"{offset_ms['keyed_perm']:.4f} ms, seg_reduce {offset_ms['seg_reduce']:.4f} ms, "
+        f"seg_broadcast "
+        f"{offset_ms['seg_broadcast']:.4f} ms (device time; CUDA events where the profiler "
+        f"saw none) | {card}")
+    del psg, tf, out_t, out_k, packed_t, isect_t, leaves
+    torch.cuda.empty_cache()
+    log(f"  (b) {time.perf_counter() - t_b:.1f} s")
+
+    # (c) the mesh Trainer in a world of one rank on NCCL
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        multihost.initialize(0, 1, 0, "127.0.0.1", _free_port(), device="cuda",
+                             timeout_s=300)
+        require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        mesh = multihost.global_mesh(1, 1)
+        trainer = Trainer(phase5b_config(tmp), scene, mesh=mesh)
+        log(f"phase 7c: Trainer(mesh=global_mesh(1, 1)) on NCCL ({mesh.device}), phase 5b's "
+            f"scene and capacity, {TRAIN_STEPS} steps, per-slab exp_cap "
+            f"{trainer.caps.exp_cap} | {card}")
+        t0 = time.perf_counter()
+        with on_path():
+            hist = trainer.train(log_every=1)
+        train_s = time.perf_counter() - t0
+        losses = [h["loss"] for h in hist]
+        n_gs = [h["num_GS"] for h in hist]
+        require(len(hist) == TRAIN_STEPS and all(np.isfinite(losses)), f"losses {losses}")
+        require(all(h["overflow"] == 0 for h in hist), "mesh Trainer overflow")
+        require(n_gs[2] != n_gs[1], f"the refine at step 3 left the alive count at {n_gs[1]}")
+        rel = abs(losses[0] - first_loss) / abs(first_loss)
+        require(rel <= 1e-5, f"first mesh loss {losses[0]} vs phase 5b's {first_loss}")
+        params, alive = load_checkpoint_params(f"{tmp}/ckpts/ckpt_{TRAIN_STEPS}.npz")
+        require(int(alive.sum()) == n_gs[-1] and params["means"].shape[0] == trainer.capacity,
+                "the mesh checkpoint through the viewer's loader")
+        saved = trainer.state
+        trainer.load_checkpoint_sharded(trainer.save_checkpoint_sharded(TRAIN_STEPS))
+        require(_states_equal(saved, trainer.state), "the sharded checkpoint round trip")
+        dts = np.diff([0.0] + [h["time_s"] for h in hist]) * 1e3
+        log(f"  losses {', '.join(f'{x:.5f}' for x in losses)} (first vs phase 5b's "
+            f"{first_loss:.5f}: rel {rel:.2e}, bar 1e-5); alive {', '.join(map(str, n_gs))}; "
+            f"the gathered checkpoint loads in the viewer, the sharded one round-trips equal")
+        log(f"  step times (host clock, each ends reading the loss) "
+            f"{', '.join(f'{x:.1f}' for x in dts)} ms; whole run {train_s:.1f} s | {card}")
+        del trainer, saved, params, alive
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"  phase 7 launches on its paths: {dict(path)}; wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(path), offset_ms
+
+
 def main():
     import torch
 
@@ -2444,6 +2862,8 @@ def main():
     rows = training_phase(dev, card, sc, max_err)
     torch.cuda.empty_cache()
     stage_counts = train_stage_phase(dev, card)
+    slab_counts, offset_ms = slab_phase(dev, card, sc, rows.pop("scene"), rows["first_loss"],
+                                        max_err)
     kernels = [dict(fwd_row, launches=rows["launches"].get("stream_fwd", 0),
                     max_abs_err=max_err["stream_fwd"])] + rows["kernels"] + [
         dict(tile_fwd_row, launches=rows["tiled_launches"].get("tile_fwd", 0),
@@ -2455,6 +2875,10 @@ def main():
         require(row["launches"] > 0, f"{row['name']} was not launched on its path")
         # the train stage's own run (phase 5e (i)): steps + eval renders
         row["stage_launches"] = stage_counts.get(row["name"], 0)
+        # phase 7's path runs; the row's time at a nonzero slab offset
+        row["slab_launches"] = slab_counts.get(row["name"], 0)
+        require(row["slab_launches"] > 0, f"{row['name']} was not launched in phase 7")
+        row["offset_ms"] = offset_ms[row["name"]]
 
     # phase 6: the kernels line, the card line, the result line
     print(json.dumps({"kernels": kernels}), flush=True)

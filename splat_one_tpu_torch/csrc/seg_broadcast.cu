@@ -16,8 +16,13 @@
 // parent 0), as the TPU kernel's one-hot product gives it. Then, as the
 // builder's decode: local = s - off + ka, the supertile (sx0 + local mod
 // span, sy0 + local div span), x taken mod sw for a spherical camera, of
-// camera p div n; out: key[s] = (supertile id << 32) | f32 bits of depth,
-// id cs for slots at or past min(total, exp_cap), and g[s] = p (int32).
+// camera q div n, where q is the slot's (camera, gaussian) pair: p, or
+// p div 2 with `segmented` (the slab build's spherical parents, two
+// unwrapped segments a pair, whose x is not taken mod sw); out: key[s] =
+// ((supertile id - st_lo) << 32) | f32 bits of depth, id cs for slots at
+// or past min(total, exp_cap) and for supertiles outside the slab
+// [st_lo, st_lo + cs), and g[s] = q (int32). Without a slab st_lo is 0
+// and cs the whole grid.
 //
 // Design. One block per chunk, 256 threads of four consecutive slots each.
 // The block stages the window's slab + 1 offsets in shared memory (3.6 KB
@@ -62,7 +67,7 @@ seg_broadcast_kernel(const int* __restrict__ pbases,
                      int64_t* __restrict__ key,          // [nb * CH]
                      int* __restrict__ g,                // [nb * CH]
                      int mp, int slab, int exp_cap, int n, int sw, int ns, int cs,
-                     int wrap) {
+                     int st_lo, int wrap, int segmented) {
   extern __shared__ int s_off[];  // [slab + 1]
   const int k = blockIdx.x;
   const int base = pbases[k];
@@ -105,13 +110,15 @@ seg_broadcast_kernel(const int* __restrict__ pbases,
       cached = p;
     }
     const int px = covered ? vx : 0, py = covered ? vy : 0, pspan = covered ? vspan : 1;
-    const int pka = covered ? vka : 0, pp = covered ? p : 0;
+    const int pka = covered ? vka : 0;
+    const int pp = covered ? (segmented ? p >> 1 : p) : 0;
     const int local = s - (covered ? s_off[i] : 0) + pka;
     int st_x = px + local % pspan;
-    if (wrap) st_x %= sw;
+    if (wrap && !segmented) st_x %= sw;
     const int st_y = py + local / pspan;
-    int64_t st = static_cast<int64_t>(pp / n) * ns + static_cast<int64_t>(st_y) * sw + st_x;
-    if (s >= live) st = cs;
+    int64_t st = static_cast<int64_t>(pp / n) * ns + static_cast<int64_t>(st_y) * sw + st_x -
+                 st_lo;
+    if (s >= live || st < 0 || st >= cs) st = cs;
     kv[j] = static_cast<int64_t>((static_cast<uint64_t>(st) << 32) | (covered ? dbits : 0u));
     gv[j] = pp;
   }
@@ -126,8 +133,8 @@ seg_broadcast_kernel(const int* __restrict__ pbases,
 extern "C" int seg_broadcast(const int* pbases, const int* offs_pad, const int64_t* sx0,
                              const int64_t* sy0, const int64_t* span, const int64_t* ka,
                              const float* depth, int64_t* key, int* g, int nb, int mp,
-                             int slab, int exp_cap, int n, int sw, int ns, int cs, int wrap,
-                             void* stream) {
+                             int slab, int exp_cap, int n, int sw, int ns, int cs, int st_lo,
+                             int wrap, int segmented, void* stream) {
   if (nb <= 0) return 0;
   const int bytes = (slab + 1) * static_cast<int>(sizeof(int));
   if (bytes > 48 * 1024) {  // above the default limit of dynamic shared memory
@@ -137,7 +144,7 @@ extern "C" int seg_broadcast(const int* pbases, const int* offs_pad, const int64
   }
   seg_broadcast_kernel<<<nb, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
       pbases, offs_pad, sx0, sy0, span, ka, depth, key, g, mp, slab, exp_cap, n, sw, ns,
-      cs, wrap);
+      cs, st_lo, wrap, segmented);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -103,8 +103,8 @@ stream_bwd_kernel(const int* __restrict__ st_starts,
                   const float* __restrict__ fwd_out,  // [CS, NT, OUT_CH, P]
                   const float* __restrict__ gout,     // [CS, NT, OUT_CH, P]
                   float* __restrict__ pgrad,          // [pad_cap, NF]
-                  int sw, int sh, int tw, int wrap_x, float width,
-                  float inv_width) {
+                  int sw, int sh, int tw, int st_offset, int wrap_x,
+                  float width, float inv_width) {
   constexpr int NR = ABS ? 12 : 10;  // reduced gradient columns
   extern __shared__ float4 smem[];
   float4* s_chunk = smem;                                        // [2][CHUNK4]
@@ -132,7 +132,9 @@ stream_bwd_kernel(const int* __restrict__ st_starts,
   }
   const int nchunks = min((s1 - base0 + G - 1) / G, nch_max);
 
-  const int st = t % (sw * sh);
+  // t indexes this launch's slab (starts, fwd_out, gout, the gradient
+  // rows); the pixels come from the global supertile id t + st_offset
+  const int st = (t + st_offset) % (sw * sh);
   const int sy = st / sw;
   const int sx = st % sw;
   const float px = static_cast<float>((sx * SS + j % SS) * TS + p0 % TS) + 0.5f;
@@ -334,15 +336,15 @@ stream_bwd_kernel(const int* __restrict__ st_starts,
 template <bool ABS>
 int launch(const int* st_starts, const int* st_starts_al, const float* packed,
            const float* fwd_out, const float* gout, float* pgrad, int cs,
-           int sw, int sh, int tw, int wrap_x, float width, float inv_width,
-           cudaStream_t stream) {
+           int sw, int sh, int tw, int st_offset, int wrap_x, float width,
+           float inv_width, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<ABS ? 12 : 10>();
   cudaError_t err = cudaFuncSetAttribute(
       stream_bwd_kernel<ABS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   stream_bwd_kernel<ABS><<<cs, THREADS, bytes, stream>>>(
       st_starts, st_starts_al, reinterpret_cast<const float4*>(packed), fwd_out,
-      gout, pgrad, sw, sh, tw, wrap_x, width, inv_width);
+      gout, pgrad, sw, sh, tw, st_offset, wrap_x, width, inv_width);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -351,14 +353,17 @@ int launch(const int* st_starts, const int* st_starts_al, const float* packed,
 extern "C" int stream_bwd(const int* st_starts, const int* st_starts_al,
                           const float* packed, const float* fwd_out,
                           const float* gout, float* pgrad, int cs, int sw,
-                          int sh, int tw, int wrap_x, float width,
-                          float inv_width, int absgrad, void* stream) {
+                          int sh, int tw, int st_offset, int wrap_x,
+                          float width, float inv_width, int absgrad,
+                          void* stream) {
   if (cs <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return absgrad ? launch<true>(st_starts, st_starts_al, packed, fwd_out, gout,
-                                pgrad, cs, sw, sh, tw, wrap_x, width, inv_width, s)
+                                pgrad, cs, sw, sh, tw, st_offset, wrap_x, width,
+                                inv_width, s)
                  : launch<false>(st_starts, st_starts_al, packed, fwd_out, gout,
-                                 pgrad, cs, sw, sh, tw, wrap_x, width, inv_width, s);
+                                 pgrad, cs, sw, sh, tw, st_offset, wrap_x, width,
+                                 inv_width, s);
 }
 
 extern "C" const char* splat_cuda_error_string(int code) {

@@ -60,7 +60,8 @@ __global__ void __launch_bounds__(Shape::THREADS)
 stream_fwd_kernel(const int* __restrict__ st_starts,
                   const float4* __restrict__ packed,  // [rows, NF / 4]
                   float* __restrict__ out,            // [CS, NT, OUT_CH, P]
-                  int sw, int sh, int tw, float width, float inv_width) {
+                  int sw, int sh, int tw, int st_offset, float width,
+                  float inv_width) {
   __shared__ fwd::Smem<Shape::WARPS, UNROLL, STAGES> sm;
   const int tile = blockIdx.x;  // t * NT + j
   const int t = tile / NT;
@@ -71,7 +72,9 @@ stream_fwd_kernel(const int* __restrict__ st_starts,
   const int base0 = (s0 / fwd::G) * fwd::G;
   const int nchunks = (s1 - base0 + fwd::G - 1) / fwd::G;
 
-  const int st = t % (sw * sh);
+  // t indexes this launch's slab (st_starts, out); the pixels come from
+  // the global supertile id t + st_offset
+  const int st = (t + st_offset) % (sw * sh);
   const int tx = (st % sw) * SS + j % SS;
   const int ty = (st / sw) * SS + j / SS;
   fwd::Pixels<PPT> pix;
@@ -110,12 +113,13 @@ stream_fwd_kernel(const int* __restrict__ st_starts,
 
 extern "C" int stream_fwd(const int* st_starts, const float* packed,
                           float* out, int cs, int sw, int sh, int tw,
-                          int wrap_x, float width, float inv_width,
-                          void* stream) {
+                          int st_offset, int wrap_x, float width,
+                          float inv_width, void* stream) {
   if (cs <= 0) return 0;
   auto* kernel = wrap_x ? stream_fwd_kernel<true> : stream_fwd_kernel<false>;
   kernel<<<cs * NT, Shape::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      st_starts, reinterpret_cast<const float4*>(packed), out, sw, sh, tw, width, inv_width);
+      st_starts, reinterpret_cast<const float4*>(packed), out, sw, sh, tw, st_offset,
+      width, inv_width);
   return static_cast<int>(cudaGetLastError());
 }
 

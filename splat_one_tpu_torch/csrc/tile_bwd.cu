@@ -87,8 +87,8 @@ tile_bwd_kernel(const int* __restrict__ starts,
                 const float* __restrict__ fwd_out,  // [CT, OUT_CH, P]
                 const float* __restrict__ gout,     // [CT, OUT_CH, P]
                 float* __restrict__ pgrad,          // [align_cap, NF]
-                int tw, int tiles_per_cam, int wrap_x, float width,
-                float inv_width) {
+                int tw, int tiles_per_cam, int tile_offset, int wrap_x,
+                float width, float inv_width) {
   extern __shared__ float4 smem[];
   float4* s_chunk = smem;                                   // [CHUNK4]
   float* s_part = reinterpret_cast<float*>(smem + CHUNK4);  // [G][VWARPS][NR]
@@ -105,7 +105,9 @@ tile_bwd_kernel(const int* __restrict__ starts,
   const int nchunks = min((starts[t + 1] - start) / G,
                           static_cast<int>(fwd_out[tile0 + CH_NCHUNKS * P]));
 
-  const int rem = t % tiles_per_cam;
+  // t indexes this launch's tiles (starts, fwd_out, gout); the pixels
+  // come from the global tile id t + tile_offset
+  const int rem = (t + tile_offset) % tiles_per_cam;
   const int ty = rem / tw;
   const int tx = rem % tw;
   const float px = static_cast<float>(tx * TS + p0 % TS) + 0.5f;
@@ -239,15 +241,15 @@ tile_bwd_kernel(const int* __restrict__ starts,
 
 extern "C" int tile_bwd(const int* starts, const float* packed,
                         const float* fwd_out, const float* gout, float* pgrad,
-                        int ct, int tw, int tiles_per_cam, int wrap_x,
-                        float width, float inv_width, void* stream) {
+                        int ct, int tw, int tiles_per_cam, int tile_offset,
+                        int wrap_x, float width, float inv_width, void* stream) {
   if (ct <= 0) return 0;
   cudaError_t err = cudaFuncSetAttribute(
       tile_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   tile_bwd_kernel<<<ct, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       starts, reinterpret_cast<const float4*>(packed), fwd_out, gout, pgrad, tw,
-      tiles_per_cam, wrap_x, width, inv_width);
+      tiles_per_cam, tile_offset, wrap_x, width, inv_width);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -52,12 +52,15 @@ __global__ void __launch_bounds__(Shape::THREADS)
 tile_fwd_kernel(const int* __restrict__ starts,
                 const float4* __restrict__ packed,  // [align_cap, NF / 4]
                 float* __restrict__ out,            // [CT, OUT_CH, P]
-                int tw, int tiles_per_cam, float width, float inv_width) {
+                int tw, int tiles_per_cam, int tile_offset, float width,
+                float inv_width) {
   __shared__ fwd::Smem<Shape::WARPS, UNROLL, STAGES> sm;
   const int t = blockIdx.x;
   const int start = starts[t];
   const int nchunks = (starts[t + 1] - start) / fwd::G;
-  const int rem = t % tiles_per_cam;
+  // t indexes this launch's tiles (starts, out); the pixels come from the
+  // global tile id t + tile_offset
+  const int rem = (t + tile_offset) % tiles_per_cam;
   fwd::Pixels<PPT> pix;
   pix.init((rem % tw) * fwd::TS, (rem / tw) * fwd::TS, threadIdx.x);
 
@@ -73,12 +76,13 @@ tile_fwd_kernel(const int* __restrict__ starts,
 }  // namespace
 
 extern "C" int tile_fwd(const int* starts, const float* packed, float* out,
-                        int ct, int tw, int tiles_per_cam, int wrap_x,
-                        float width, float inv_width, void* stream) {
+                        int ct, int tw, int tiles_per_cam, int tile_offset,
+                        int wrap_x, float width, float inv_width, void* stream) {
   if (ct <= 0) return 0;
   auto* kernel = wrap_x ? tile_fwd_kernel<true> : tile_fwd_kernel<false>;
   kernel<<<ct, Shape::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      starts, reinterpret_cast<const float4*>(packed), out, tw, tiles_per_cam, width, inv_width);
+      starts, reinterpret_cast<const float4*>(packed), out, tw, tiles_per_cam, tile_offset,
+      width, inv_width);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,8 +19,10 @@ The integer outputs equal the JAX package's bit for bit. The gradient
 reduction sums each gaussian's slot rows exactly with the segmented
 reduce (``ops.seg_reduce``, reading the rows in place through
 ``rank_perm``) instead of the JAX package's row gather, cumsum and
-boundary difference. The tile-sharded path (``tile_lo`` /
-``n_tiles_local``) belongs to the multi-GPU slice and raises.
+boundary difference. With ``tile_lo`` / ``n_tiles_local`` the layout
+holds only the tiles ``[tile_lo, tile_lo + n_tiles_local)`` of the
+flattened (camera, tile) grid, re-based to 0 (a tile slab, for
+``tile_raster.composite_tiles(tile_offset=tile_lo)``).
 """
 
 from __future__ import annotations
@@ -116,17 +118,17 @@ def build_intersections(proj: Projected, width: int, height: int,
                         camera_model: str = "pinhole", tile_lo=None,
                         n_tiles_local: int = 0) -> IsectData:
     """Build the sorted, G-aligned per-tile layout from projected
-    gaussians (a detached projection: the layout is integer data)."""
-    if tile_lo is not None or n_tiles_local:
-        raise NotImplementedError(
-            "tile_lo / n_tiles_local (tile-sharded multi-GPU rasterization) is "
-            "not ported yet: it comes with the multi-GPU slice")
+    gaussians (a detached projection: the layout is integer data). With
+    ``n_tiles_local``, only the tiles ``[tile_lo, tile_lo + n_tiles_local)``
+    are kept, with ids re-based to that range."""
+    if bool(n_tiles_local) != (tile_lo is not None):
+        raise ValueError("tile_lo and n_tiles_local go together")
     C, N = proj.depths.shape
     dev = proj.depths.device
     TW = -(-width // tile_size)
     TH = -(-height // tile_size)
     T = TH * TW
-    CT = C * T
+    CT = n_tiles_local or C * T
     M0 = C * N
     G = caps.chunk
     EXP = caps.exp_cap
@@ -164,6 +166,9 @@ def build_intersections(proj: Projected, width: int, height: int,
     tile_y = ty0[g_of_s] + torch.div(local, sx, rounding_mode="floor")
     cam = torch.div(g_of_s, N, rounding_mode="floor")
     tile_id = cam * T + tile_y * TW + tile_x
+    if n_tiles_local:
+        tile_id = tile_id - tile_lo
+        slot_ok = slot_ok & (tile_id >= 0) & (tile_id < CT)
     tile_id = torch.where(slot_ok, tile_id, torch.full_like(tile_id, CT))
 
     # 4. stable sort by tile: depth order is kept within each tile

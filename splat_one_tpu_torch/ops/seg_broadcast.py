@@ -50,13 +50,20 @@ _MAX_SLAB = 232_448 // 4 - 1  # the window's offsets fill at most 227 KB of shar
 class SlotGrid(NamedTuple):
     """What turns a slot's parent row into its supertile id: gaussians per
     camera, supertiles per row and per camera, the id of slots at and past
-    the total (``C * ns``), and the azimuth wrap of spherical cameras."""
+    the total (``C * ns``, or a slab's ``n_st_local``), the azimuth wrap of
+    spherical cameras, the slab's first supertile ``st_lo`` (ids are
+    re-based to it; those outside ``[st_lo, st_lo + cs)`` get ``cs``), and
+    ``segmented``: parent 2q and 2q + 1 are two unwrapped segments of the
+    (camera, gaussian) pair q (the slab build's spherical parents), whose
+    x is not taken mod ``sw``."""
 
     n: int
     sw: int
     ns: int
     cs: int
     wrap: bool
+    st_lo: int = 0
+    segmented: bool = False
 
 
 def _as_numpy(x):
@@ -128,18 +135,23 @@ def slot_keys(meta, n_live, grid: SlotGrid):
     (the seven columns of ``default_expansion``) -> ``(key, g_of_s)``: the
     slot's place in its parent's run, ``local = s - off + ka``, is the
     supertile ``(sx0 + local mod span, sy0 + local div span)`` (x taken mod
-    ``sw`` with ``wrap``) of camera ``g div n``; ``key = (id << 32) | f32
-    bits of depth``, id ``grid.cs`` for slots at or past ``n_live``."""
+    ``sw`` with ``wrap`` unless ``segmented``) of camera ``q div n``, where
+    the owner q is the parent g (``g div 2`` with ``segmented``);
+    ``key = ((id - st_lo) << 32) | f32 bits of depth``, id ``grid.cs`` for
+    slots at or past ``n_live`` and for supertiles outside the slab."""
     sx0_s, sy0_s, span_s, ka_s, off_s, depth_s, g_of_s = meta
+    if grid.segmented:
+        g_of_s = torch.div(g_of_s, 2, rounding_mode="floor")
     slot_ids = torch.arange(g_of_s.shape[0], dtype=torch.int64, device=g_of_s.device)
     local = slot_ids - off_s + ka_s
     st_x = sx0_s + torch.remainder(local, span_s)
-    if grid.wrap:
+    if grid.wrap and not grid.segmented:
         st_x = torch.remainder(st_x, grid.sw)
     st_y = sy0_s + torch.div(local, span_s, rounding_mode="floor")
     cam = torch.div(g_of_s, grid.n, rounding_mode="floor")
-    st_id = cam * grid.ns + st_y * grid.sw + st_x
-    st_id = torch.where(slot_ids < n_live, st_id, torch.full_like(st_id, grid.cs))
+    st_id = cam * grid.ns + st_y * grid.sw + st_x - grid.st_lo
+    ok = (slot_ids < n_live) & (st_id >= 0) & (st_id < grid.cs)
+    st_id = torch.where(ok, st_id, torch.full_like(st_id, grid.cs))
     dbits = depth_s.contiguous().view(torch.int32).long() & 0xFFFFFFFF
     return (st_id << 32) | dbits, g_of_s
 
@@ -227,7 +239,7 @@ def expand_parent_meta(sx0, sy0, span, ka, depth, offs_pad, pbases, exp_cap: int
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.seg_broadcast(*(t.data_ptr() for t in args), key.data_ptr(), g.data_ptr(),
                                nb, MP, slab, exp_cap, grid.n, grid.sw, grid.ns, grid.cs,
-                               int(grid.wrap), stream)
+                               int(grid.st_lo), int(grid.wrap), int(grid.segmented), stream)
     cuda_build.check(lib, rc, "seg_broadcast")
     cuda_build.launch_counts["seg_broadcast"] += 1
     return key, g

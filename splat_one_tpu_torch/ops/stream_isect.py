@@ -11,7 +11,12 @@ slot per 16 px tile. Pipeline:
   3. one stable sort by (supertile, depth), ties in expansion order,
   4. searchsorted for per-supertile slot ranges.
 Spherical cameras wrap in azimuth: unwrapped spans, ``mod sw`` at
-expansion. Slots are indexed with integers, so the JAX package's f32-id
+expansion. A supertile slab (``st_lo`` / ``n_st_local``, multi-GPU)
+enumerates only its own intersections: each parent's in-slab cells form
+one contiguous run of its row-major bbox enumeration, with closed-form
+bounds, so ``exp_cap`` is a per-slab budget; a spherical parent becomes
+two unwrapped segments first, so the bounds hold across the seam. Slots
+are indexed with integers, so the JAX package's f32-id
 limit (C*N < 2^24) does not apply to the forward; the f32 ``COL_GID``
 column keeps that limit for the backward, whose per-slot gradient rows
 (``GCOL_*``) ``reduce_stream_grads`` orders by that key and reduces per
@@ -132,7 +137,7 @@ class StreamIsect(NamedTuple):
     st_starts: torch.Tensor  # [C*NS + 1] int32
     st_starts_al: torch.Tensor  # [C*NS + 1] int32
     n_isect: torch.Tensor  # [] int64
-    n_slots: torch.Tensor  # [] int64 (== clamped n_isect)
+    n_slots: torch.Tensor  # [] int64 kept slots (the clamped n_isect, in-slab)
     overflow: torch.Tensor  # [] bool
 
 
@@ -232,6 +237,59 @@ def observed_sb_slab(proj: Projected, width: int, height: int, tile_size: int,
     return required_slab(offsets, counts, caps.exp_cap)
 
 
+def slot_parents(proj: Projected, width: int, height: int, tile_size: int, ss: int,
+                 camera_model: str = "pinhole", st_lo: int = 0, n_st_local: int = 0):
+    """The expansion's parents and their slot runs -> ``(sx0, sy0, span,
+    ka, offsets, depth, counts, grid)`` ([MP] each but ``grid``, a
+    ``SlotGrid``): one parent per (camera, gaussian), or in a spherical
+    slab two, and with ``n_st_local`` each parent's run of in-slab cells,
+    starting at its enumeration index ``ka``."""
+    C, N = proj.depths.shape
+    M0 = C * N
+    _, _, sw, sh = supertile_grid(width, height, tile_size, ss)
+    NS = sw * sh
+    CS = n_st_local or C * NS
+    sx0, span_x, sy0, span_y = parent_spans(proj, width, height, tile_size, ss, camera_model)
+    depth_p = proj.depths.reshape(M0)
+    # the slab path's spherical parents: each (camera, gaussian) pair q
+    # becomes parents 2q (columns [sx0, sw)) and 2q + 1 (the wrapped rest
+    # from column 0), so every parent's flat ids rise along its enumeration
+    segmented = bool(n_st_local) and camera_model == "spherical"
+    if segmented:
+        span_a = torch.minimum(span_x, sw - sx0)
+        sx0 = torch.stack([sx0, torch.zeros_like(sx0)], 1).reshape(2 * M0)
+        span_x = torch.stack([span_a, span_x - span_a], 1).reshape(2 * M0)
+        sy0 = torch.repeat_interleave(sy0, 2)
+        span_y = torch.repeat_interleave(span_y, 2)
+        depth_p = torch.repeat_interleave(depth_p, 2)
+    counts = span_x * span_y
+    span_p = torch.clamp(span_x, min=1)
+    kA = torch.zeros_like(counts)
+    if n_st_local:
+        # a parent's flat supertile ids rise along its row-major bbox
+        # enumeration k, so its cells inside the slab [st_lo, st_lo + CS)
+        # are the run [kA, kB): k_bound(limit) is the first k whose id is
+        # at or past limit
+        real_p = torch.arange(counts.shape[0], device=counts.device)
+        if segmented:
+            real_p = torch.div(real_p, 2, rounding_mode="floor")
+        base = torch.div(real_p, N, rounding_mode="floor") * NS + sy0 * sw + sx0
+
+        def k_bound(limit):
+            q = limit - base
+            r0 = torch.div(q, sw, rounding_mode="floor")
+            in_row = q - r0 * sw
+            k = torch.where(in_row < span_p, r0 * span_p + in_row, (r0 + 1) * span_p)
+            return torch.minimum(torch.clamp(k, min=0), counts)
+
+        kA = k_bound(st_lo)
+        counts = torch.clamp(k_bound(st_lo + CS) - kA, min=0)
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
+    grid = SlotGrid(n=N, sw=sw, ns=NS, cs=CS, wrap=camera_model == "spherical",
+                    st_lo=int(st_lo), segmented=segmented)
+    return sx0, sy0, span_p, kA, offsets, depth_p, counts, grid
+
+
 def build_stream_intersections(
     proj: Projected,
     width: int,
@@ -239,33 +297,30 @@ def build_stream_intersections(
     tile_size: int,
     caps: StreamCaps,
     camera_model: str = "pinhole",
+    st_lo: int = 0,
+    n_st_local: int = 0,
 ) -> StreamIsect:
-    """Build the sorted supertile stream from projected gaussians."""
-    C, N = proj.depths.shape
-    M0 = C * N
+    """Build the sorted supertile stream from projected gaussians.
+
+    With ``n_st_local``, only the supertiles ``[st_lo, st_lo + n_st_local)``
+    of the flattened (camera, supertile) grid are kept, re-based to 0: one
+    slab of the supertile-sharded multi-GPU path. ``n_isect`` then counts
+    the slab's intersections, so ``caps.exp_cap`` is a per-slab budget."""
     dev = proj.depths.device
-    _, _, sw, sh = supertile_grid(width, height, tile_size, caps.ss)
-    NS = sw * sh
-    CS = C * NS
     G = caps.chunk
     EXP = caps.exp_cap
-
-    sx0, span_x, sy0, span_y = parent_spans(
-        proj, width, height, tile_size, caps.ss, camera_model)
-    counts = span_x * span_y
-    span_p = torch.clamp(span_x, min=1)
-    kA = torch.zeros_like(counts)
-    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
+    sx0, sy0, span_p, kA, offsets, depth_p, counts, grid = slot_parents(
+        proj, width, height, tile_size, caps.ss, camera_model, st_lo, n_st_local)
+    CS = grid.cs
+    M0 = proj.depths.numel()
     n_isect = offsets[-1] + counts[-1]
     overflow = n_isect > EXP
 
-    # each slot's (supertile id | f32 bits of the depth) key: live depths are
-    # positive, so their bit patterns order like their values; slots past
-    # the total carry id CS and sort last
-    key, g_of_s = expand_slots(
-        sx0, sy0, span_p, kA, offsets, proj.depths.reshape(M0), counts, EXP,
-        SlotGrid(n=N, sw=sw, ns=NS, cs=CS, wrap=camera_model == "spherical"),
-        slab=caps.sb_slab)
+    # each slot's (supertile id - st_lo | f32 bits of the depth) key: live
+    # depths are positive, so their bit patterns order like their values;
+    # slots past the total or outside the slab carry id CS and sort last
+    key, g_of_s = expand_slots(sx0, sy0, span_p, kA, offsets, depth_p, counts, EXP, grid,
+                               slab=caps.sb_slab)
     # one stable sort on that exact int64 key: ties keep expansion order, as
     # the JAX package's stable two-key sort does
     sorted_key, order = torch.sort(key, stable=True)
@@ -280,7 +335,8 @@ def build_stream_intersections(
     counts_al = -torch.div(-(lead + st_counts), G, rounding_mode="floor") * G
     st_starts_al = torch.cat([counts_al.new_zeros(1), torch.cumsum(counts_al, 0)])
 
-    n_slots = torch.clamp(n_isect, max=EXP)
+    # the kept slots (id below CS) sort first: the mask is positional
+    n_slots = st_starts[-1]
     sorted_ok = torch.arange(EXP, dtype=torch.int64, device=dev) < n_slots
     return StreamIsect(
         sorted_g=torch.where(sorted_ok, sorted_g, torch.full_like(sorted_g, M0)).int(),

@@ -21,6 +21,13 @@ per gaussian. ``composite_stream`` wraps forward and backward in a
 (``csrc/stream_fwd.cu``, ``csrc/stream_bwd.cu``) on CUDA tensors and run
 ``stream_fwd_plain`` / ``stream_bwd_plain``, their plain PyTorch
 versions, on CPU tensors.
+
+Supertile slabs (multi-GPU): with ``StreamCfg.cs_local`` the grid spans
+one slab of ``cs_local`` (camera, supertile) cells, and every function
+here takes the slab's first global cell as ``tile_offset`` (a host int);
+a cell's own index still addresses its slot range, its output and its
+gradient rows, while its pixels come from the global id
+``t + tile_offset``. ``stream_to_image`` takes the full grid's cfg.
 """
 
 from __future__ import annotations
@@ -58,6 +65,8 @@ class StreamCfg:
     wrap_x: bool = False
     absgrad: bool = False  # reduce the ABSDX/ABSDY gradient columns
     ss: int = SS  # tiles per supertile side
+    # cells of one supertile slab (multi-GPU); 0: the whole grid
+    cs_local: int = 0
 
     @property
     def nt(self):
@@ -81,7 +90,7 @@ class StreamCfg:
 
     @property
     def cs(self):
-        return self.num_cameras * self.sw * self.sh
+        return self.cs_local or self.num_cameras * self.sw * self.sh
 
     @property
     def npix(self):
@@ -159,7 +168,7 @@ def _chunk_gate(cfg: StreamCfg, chunk, tx, ty, rowmask):
 
 
 def stream_fwd_plain(cfg: StreamCfg, st_starts: torch.Tensor,
-                     packed: torch.Tensor) -> torch.Tensor:
+                     packed: torch.Tensor, tile_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the forward compositing kernel.
 
     Same chunking, gating, kill rules, termination and n_chunks bookkeeping
@@ -177,7 +186,7 @@ def stream_fwd_plain(cfg: StreamCfg, st_starts: torch.Tensor,
     acc = torch.zeros((CS, NT, 4, P), dtype=torch.float32, device=dev)
     nch = torch.zeros((CS, NT), dtype=torch.int64, device=dev)
     px_all, py_all, tx_all, ty_all = _tile_geometry(
-        cfg, torch.arange(CS, device=dev))
+        cfg, torch.arange(CS, device=dev) + tile_offset)
     inv_w = _inv_width(cfg)
     slots = torch.arange(G, device=dev)
     kmax = int(nchunks.max()) if CS else 0
@@ -222,11 +231,14 @@ def stream_fwd_plain(cfg: StreamCfg, st_starts: torch.Tensor,
     return out
 
 
-def _check_kernel_inputs(name, cfg: StreamCfg, st_starts, packed, *starts_al):
+def _check_kernel_inputs(name, cfg: StreamCfg, st_starts, packed, *starts_al,
+                         tile_offset=0):
     """Raise unless the tensors are what the CUDA kernels take; returns
     them contiguous."""
     if packed.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {packed.device}")
+    if not 0 <= tile_offset < 2**31 - cfg.cs:
+        raise ValueError(f"{name}: tile_offset {tile_offset} outside the int32 grid")
     if (cfg.chunk, cfg.tile_size, cfg.ss) != (128, 16, 2):
         raise ValueError(
             f"{name} kernel is built for chunk=128, tile_size=16, ss=2; "
@@ -246,16 +258,18 @@ def _check_kernel_inputs(name, cfg: StreamCfg, st_starts, packed, *starts_al):
 
 
 def stream_fwd(cfg: StreamCfg, st_starts: torch.Tensor,
-               packed: torch.Tensor) -> torch.Tensor:
+               packed: torch.Tensor, tile_offset: int = 0) -> torch.Tensor:
     """Forward compositing -> [CS, NT, OUT_CH, P] f32.
 
     ``st_starts`` [CS+1] int32 slot ranges, ``packed`` [exp_cap + G, NF]
-    f32 slot-major field table. CPU tensors take the plain version; CUDA
+    f32 slot-major field table, ``tile_offset`` the global id of the
+    first cell (a slab's). CPU tensors take the plain version; CUDA
     tensors launch the kernel (built from ``csrc/stream_fwd.cu`` at first
     use) or raise."""
     if packed.device.type == "cpu":
-        return stream_fwd_plain(cfg, st_starts, packed)
-    st_starts, packed = _check_kernel_inputs("stream_fwd", cfg, st_starts, packed)
+        return stream_fwd_plain(cfg, st_starts, packed, tile_offset)
+    st_starts, packed = _check_kernel_inputs("stream_fwd", cfg, st_starts, packed,
+                                             tile_offset=tile_offset)
     out = torch.empty((cfg.cs, cfg.nt, OUT_CH, cfg.npix), dtype=torch.float32,
                       device=packed.device)
     lib = cuda_build.library("stream_fwd")
@@ -263,7 +277,7 @@ def stream_fwd(cfg: StreamCfg, st_starts: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.stream_fwd(
             st_starts.data_ptr(), packed.data_ptr(), out.data_ptr(),
-            cfg.cs, cfg.sw, cfg.sh, cfg.tw, int(cfg.wrap_x),
+            cfg.cs, cfg.sw, cfg.sh, cfg.tw, int(tile_offset), int(cfg.wrap_x),
             float(cfg.width), _inv_width(cfg), stream)
     cuda_build.check(lib, rc, "stream_fwd")
     cuda_build.launch_counts["stream_fwd"] += 1
@@ -288,7 +302,8 @@ def warp_sum(v: torch.Tensor) -> torch.Tensor:
 
 def stream_bwd_plain(cfg: StreamCfg, st_starts: torch.Tensor,
                      st_starts_al: torch.Tensor, packed: torch.Tensor,
-                     fwd_out: torch.Tensor, gout: torch.Tensor) -> torch.Tensor:
+                     fwd_out: torch.Tensor, gout: torch.Tensor,
+                     tile_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the backward compositing kernel.
 
     Same chunk replay (each tile up to its forward n_chunks), gating, kill
@@ -318,7 +333,8 @@ def stream_bwd_plain(cfg: StreamCfg, st_starts: torch.Tensor,
     gat = gout[:, :, 3] * (1.0 - fwd_out[:, :, 3])  # gA * T_final
     T = torch.ones((CS, NT, P), dtype=torch.float32, device=dev)
     gP = torch.zeros((CS, NT, P), dtype=torch.float32, device=dev)
-    px_all, py_all, tx_all, ty_all = _tile_geometry(cfg, torch.arange(CS, device=dev))
+    px_all, py_all, tx_all, ty_all = _tile_geometry(
+        cfg, torch.arange(CS, device=dev) + tile_offset)
     inv_w = _inv_width(cfg)
     slots = torch.arange(G, device=dev)
     for k in range(int(nchunks.max())):
@@ -390,19 +406,22 @@ def stream_bwd_plain(cfg: StreamCfg, st_starts: torch.Tensor,
 
 def stream_bwd(cfg: StreamCfg, st_starts: torch.Tensor,
                st_starts_al: torch.Tensor, packed: torch.Tensor,
-               fwd_out: torch.Tensor, gout: torch.Tensor) -> torch.Tensor:
+               fwd_out: torch.Tensor, gout: torch.Tensor,
+               tile_offset: int = 0) -> torch.Tensor:
     """Backward compositing -> per-slot gradient rows [pad_cap, NF] f32
     (``GCOL_*`` columns; the key column holds gid + 1 on each supertile's
     own slots and rows never reached stay 0).
 
     ``fwd_out`` is the forward's output (its n_chunks channel sets how
-    far each tile replays), ``gout`` the cotangent of it. CPU tensors take
-    the plain version; CUDA tensors launch the kernel (built from
-    ``csrc/stream_bwd.cu`` at first use) or raise."""
+    far each tile replays), ``gout`` the cotangent of it, ``tile_offset``
+    as for ``stream_fwd``. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (built from ``csrc/stream_bwd.cu`` at first
+    use) or raise."""
     if packed.device.type == "cpu":
-        return stream_bwd_plain(cfg, st_starts, st_starts_al, packed, fwd_out, gout)
+        return stream_bwd_plain(cfg, st_starts, st_starts_al, packed, fwd_out, gout,
+                                tile_offset)
     st_starts, packed, st_starts_al = _check_kernel_inputs(
-        "stream_bwd", cfg, st_starts, packed, st_starts_al)
+        "stream_bwd", cfg, st_starts, packed, st_starts_al, tile_offset=tile_offset)
     shape = (cfg.cs, cfg.nt, OUT_CH, cfg.npix)
     for name, t in (("fwd_out", fwd_out), ("gout", gout)):
         if t.dtype != torch.float32 or tuple(t.shape) != shape or t.device != packed.device:
@@ -418,7 +437,7 @@ def stream_bwd(cfg: StreamCfg, st_starts: torch.Tensor,
         rc = lib.stream_bwd(
             st_starts.data_ptr(), st_starts_al.data_ptr(), packed.data_ptr(),
             fwd_out.data_ptr(), gout.data_ptr(), pgrad.data_ptr(),
-            cfg.cs, cfg.sw, cfg.sh, cfg.tw, int(cfg.wrap_x),
+            cfg.cs, cfg.sw, cfg.sh, cfg.tw, int(tile_offset), int(cfg.wrap_x),
             float(cfg.width), _inv_width(cfg), int(cfg.absgrad), stream)
     cuda_build.check(lib, rc, "stream_bwd")
     cuda_build.launch_counts["stream_bwd"] += 1
@@ -432,15 +451,16 @@ class _StreamComposite(torch.autograd.Function):
     (``COL_EXT_RX/RY``) get no gradient, as in the JAX custom VJP."""
 
     @staticmethod
-    def forward(ctx, cfg, isect, means2d, conics, colors, opacities, depths,
-                radii, abs_dummy):
+    def forward(ctx, cfg, isect, tile_offset, means2d, conics, colors, opacities,
+                depths, radii, abs_dummy):
         if cfg.absgrad != (abs_dummy is not None):
             raise ValueError("cfg.absgrad must be set exactly when abs_dummy is passed")
         fields = si.build_field_columns(means2d, conics, opacities, colors,
                                         depths, radii)
         packed = si.pack_stream(fields, isect, cfg.caps)
-        out = stream_fwd(cfg, isect.st_starts, packed)
+        out = stream_fwd(cfg, isect.st_starts, packed, tile_offset)
         ctx.cfg = cfg
+        ctx.tile_offset = tile_offset
         ctx.save_for_backward(packed, isect.st_starts, isect.st_starts_al, out)
         return out
 
@@ -449,7 +469,8 @@ class _StreamComposite(torch.autograd.Function):
         packed, st_starts, st_starts_al, out = ctx.saved_tensors
         cfg = ctx.cfg
         C, N = cfg.num_cameras, cfg.num_gaussians
-        pgrads = stream_bwd(cfg, st_starts, st_starts_al, packed, out, gout)
+        pgrads = stream_bwd(cfg, st_starts, st_starts_al, packed, out, gout,
+                            ctx.tile_offset)
         n_payload = si.N_GCOLS if cfg.absgrad else si.GCOL_ABSDX
         seg = si.reduce_stream_grads(pgrads, C * N, n_payload)
 
@@ -457,7 +478,7 @@ class _StreamComposite(torch.autograd.Function):
             return seg[list(c)].T.reshape(C, N, len(c))
 
         dabs = cols(si.GCOL_ABSDX, si.GCOL_ABSDY) if cfg.absgrad else None
-        return (None, None,
+        return (None, None, None,
                 cols(si.GCOL_DX, si.GCOL_DY),
                 cols(si.GCOL_DCA, si.GCOL_DCB, si.GCOL_DCC),
                 cols(si.GCOL_DR, si.GCOL_DG, si.GCOL_DB),
@@ -476,13 +497,16 @@ def composite_stream(
     radii: torch.Tensor,  # [C, N] (tile-bbox metadata, no gradient)
     isect: StreamIsect,
     abs_dummy: torch.Tensor | None = None,  # [C, N, 2] absgrad hook
+    tile_offset: int = 0,  # global id of the slab's first cell
 ) -> torch.Tensor:
     """Differentiable supertile compositing -> [CS, NT, OUT_CH, P].
 
     Gradients flow to means2d, conics, colors, opacities and depths; the
     cotangent of ``abs_dummy`` is the per-gaussian sum of |d means2d| over
-    pixels; pass it exactly when ``cfg.absgrad``."""
-    return _StreamComposite.apply(cfg, isect, means2d, conics, colors,
+    pixels; pass it exactly when ``cfg.absgrad``. With ``cfg.cs_local``
+    the isect is a slab's (``build_stream_intersections(st_lo=...)``) and
+    ``tile_offset`` its ``st_lo``."""
+    return _StreamComposite.apply(cfg, isect, int(tile_offset), means2d, conics, colors,
                                   opacities, depths, radii.detach(), abs_dummy)
 
 

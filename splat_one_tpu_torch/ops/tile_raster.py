@@ -21,6 +21,12 @@ sums them per gaussian. ``composite_tiles`` wraps both in a
 ``tile_fwd_plain`` / ``tile_bwd_plain``, their plain PyTorch versions, on
 CPU tensors. The JAX kernels' log-space transmittance and triangular
 matmuls are MXU forms of the same sums; the port takes them serially.
+
+Tile slabs: with ``RasterCfg.ct_local`` the grid spans ``ct_local`` tiles
+of a layout built with ``intersect.build_intersections(tile_lo=...)``,
+and every function here takes ``tile_offset`` (a host int, that
+``tile_lo``): a tile's own index addresses its slots and output, its
+pixels come from the global id ``t + tile_offset``.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ class RasterCfg:
     chunk: int  # G
     align_cap: int
     wrap_x: bool = False  # spherical azimuth seam
+    ct_local: int = 0  # tiles of one slab; 0: the whole grid
 
     @property
     def tw(self):
@@ -65,7 +72,7 @@ class RasterCfg:
 
     @property
     def ct(self):
-        return self.num_cameras * self.tw * self.th
+        return self.ct_local or self.num_cameras * self.tw * self.th
 
     @property
     def npix(self):
@@ -102,7 +109,7 @@ def _slot_alpha(cfg: RasterCfg, c, px, py, inv_w):
 
 
 def tile_fwd_plain(cfg: RasterCfg, starts: torch.Tensor,
-                   packed: torch.Tensor) -> torch.Tensor:
+                   packed: torch.Tensor, tile_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: the same chunking,
     kill rules and termination as ``csrc/tile_fwd.cu`` and the same
     per-slot arithmetic in the same order (a serial loop over the G slots
@@ -115,7 +122,7 @@ def tile_fwd_plain(cfg: RasterCfg, starts: torch.Tensor,
     T = torch.ones((CT, P), dtype=torch.float32, device=dev)
     acc = torch.zeros((CT, 4, P), dtype=torch.float32, device=dev)
     nch = torch.zeros((CT,), dtype=torch.int64, device=dev)
-    px_all, py_all = _tile_pixels(cfg, torch.arange(CT, device=dev))
+    px_all, py_all = _tile_pixels(cfg, torch.arange(CT, device=dev) + tile_offset)
     inv_w = _inv_width(cfg)
     slots = torch.arange(G, device=dev)
     for k in range(int(nchunks.max()) if CT else 0):
@@ -144,11 +151,13 @@ def tile_fwd_plain(cfg: RasterCfg, starts: torch.Tensor,
     return out
 
 
-def _check_kernel_inputs(name, cfg: RasterCfg, starts, packed, *planes):
+def _check_kernel_inputs(name, cfg: RasterCfg, starts, packed, *planes, tile_offset=0):
     """Raise unless the tensors are what the CUDA kernels take; returns
     them contiguous."""
     if packed.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {packed.device}")
+    if not 0 <= tile_offset < 2**31 - cfg.ct:
+        raise ValueError(f"{name}: tile_offset {tile_offset} outside the int32 grid")
     if (cfg.chunk, cfg.tile_size) != (128, 16):
         raise ValueError(f"{name} kernel is built for chunk=128, tile_size=16; "
                          f"got {(cfg.chunk, cfg.tile_size)}")
@@ -169,31 +178,35 @@ def _check_kernel_inputs(name, cfg: RasterCfg, starts, packed, *planes):
     return [t.contiguous() for t in (starts, packed, *planes)]
 
 
-def tile_fwd(cfg: RasterCfg, starts: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+def tile_fwd(cfg: RasterCfg, starts: torch.Tensor, packed: torch.Tensor,
+             tile_offset: int = 0) -> torch.Tensor:
     """Forward compositing -> [CT, OUT_CH, P] f32.
 
     ``starts`` [CT+1] int32 G-aligned slot ranges, ``packed``
-    [align_cap, NF] f32 slot-major field table. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (built from
-    ``csrc/tile_fwd.cu`` at first use) or raise."""
+    [align_cap, NF] f32 slot-major field table, ``tile_offset`` the global
+    id of the first tile (a slab's). CPU tensors take the plain version;
+    CUDA tensors launch the kernel (built from ``csrc/tile_fwd.cu`` at
+    first use) or raise."""
     if packed.device.type == "cpu":
-        return tile_fwd_plain(cfg, starts, packed)
-    starts, packed = _check_kernel_inputs("tile_fwd", cfg, starts, packed)
+        return tile_fwd_plain(cfg, starts, packed, tile_offset)
+    starts, packed = _check_kernel_inputs("tile_fwd", cfg, starts, packed,
+                                          tile_offset=tile_offset)
     out = torch.empty((cfg.ct, OUT_CH, cfg.npix), dtype=torch.float32,
                       device=packed.device)
     lib = cuda_build.library("tile_fwd")
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tile_fwd(starts.data_ptr(), packed.data_ptr(), out.data_ptr(),
-                          cfg.ct, cfg.tw, cfg.tw * cfg.th, int(cfg.wrap_x),
-                          float(cfg.width), _inv_width(cfg), stream)
+                          cfg.ct, cfg.tw, cfg.tw * cfg.th, int(tile_offset),
+                          int(cfg.wrap_x), float(cfg.width), _inv_width(cfg), stream)
     cuda_build.check(lib, rc, "tile_fwd")
     cuda_build.launch_counts["tile_fwd"] += 1
     return out
 
 
 def tile_bwd_plain(cfg: RasterCfg, starts: torch.Tensor, packed: torch.Tensor,
-                   fwd_out: torch.Tensor, gout: torch.Tensor) -> torch.Tensor:
+                   fwd_out: torch.Tensor, gout: torch.Tensor,
+                   tile_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the backward kernel: the same chunk replay
     (each tile up to its forward n_chunks), kill and clamp rules as
     ``csrc/tile_bwd.cu`` and the same arithmetic in the same order; each
@@ -219,7 +232,7 @@ def tile_bwd_plain(cfg: RasterCfg, starts: torch.Tensor, packed: torch.Tensor,
     gat = gout[:, 3] * (1.0 - fwd_out[:, 3])  # gA * T_final
     T = torch.ones((CT, P), dtype=torch.float32, device=dev)
     gP = torch.zeros((CT, P), dtype=torch.float32, device=dev)
-    px_all, py_all = _tile_pixels(cfg, torch.arange(CT, device=dev))
+    px_all, py_all = _tile_pixels(cfg, torch.arange(CT, device=dev) + tile_offset)
     inv_w = _inv_width(cfg)
     slots = torch.arange(G, device=dev)
     for k in range(int(nchunks.max())):
@@ -271,18 +284,18 @@ def tile_bwd_plain(cfg: RasterCfg, starts: torch.Tensor, packed: torch.Tensor,
 
 
 def tile_bwd(cfg: RasterCfg, starts: torch.Tensor, packed: torch.Tensor,
-             fwd_out: torch.Tensor, gout: torch.Tensor) -> torch.Tensor:
+             fwd_out: torch.Tensor, gout: torch.Tensor, tile_offset: int = 0) -> torch.Tensor:
     """Backward compositing -> per-slot gradient rows [align_cap, NF] f32
     (``GROW_*`` columns; rows of chunks no tile replayed stay 0).
 
     ``fwd_out`` is the forward's output (its n_chunks channel sets how far
-    each tile replays), ``gout`` the cotangent of it. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (built from
-    ``csrc/tile_bwd.cu`` at first use) or raise."""
+    each tile replays), ``gout`` the cotangent of it, ``tile_offset`` as for
+    ``tile_fwd``. CPU tensors take the plain version; CUDA tensors launch
+    the kernel (built from ``csrc/tile_bwd.cu`` at first use) or raise."""
     if packed.device.type == "cpu":
-        return tile_bwd_plain(cfg, starts, packed, fwd_out, gout)
+        return tile_bwd_plain(cfg, starts, packed, fwd_out, gout, tile_offset)
     starts, packed, fwd_out, gout = _check_kernel_inputs(
-        "tile_bwd", cfg, starts, packed, fwd_out, gout)
+        "tile_bwd", cfg, starts, packed, fwd_out, gout, tile_offset=tile_offset)
     # rows of chunks no tile replays must read 0 for the reduction
     pgrad = torch.zeros((cfg.align_cap, NF), dtype=torch.float32, device=packed.device)
     lib = cuda_build.library("tile_bwd")
@@ -290,8 +303,8 @@ def tile_bwd(cfg: RasterCfg, starts: torch.Tensor, packed: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tile_bwd(starts.data_ptr(), packed.data_ptr(), fwd_out.data_ptr(),
                           gout.data_ptr(), pgrad.data_ptr(), cfg.ct, cfg.tw,
-                          cfg.tw * cfg.th, int(cfg.wrap_x), float(cfg.width),
-                          _inv_width(cfg), stream)
+                          cfg.tw * cfg.th, int(tile_offset), int(cfg.wrap_x),
+                          float(cfg.width), _inv_width(cfg), stream)
     cuda_build.check(lib, rc, "tile_bwd")
     cuda_build.launch_counts["tile_bwd"] += 1
     return pgrad
@@ -303,12 +316,13 @@ class _TileComposite(torch.autograd.Function):
     as in the JAX custom VJP."""
 
     @staticmethod
-    def forward(ctx, cfg, isect, means2d, conics, colors, opacities, depths,
-                abs_dummy):
+    def forward(ctx, cfg, isect, tile_offset, means2d, conics, colors, opacities,
+                depths, abs_dummy):
         packed = isect_mod.pack_fields(means2d, conics, colors, opacities,
                                        depths, isect)
-        out = tile_fwd(cfg, isect.tile_starts, packed)
+        out = tile_fwd(cfg, isect.tile_starts, packed, tile_offset)
         ctx.cfg = cfg
+        ctx.tile_offset = tile_offset
         ctx.with_abs = abs_dummy is not None
         ctx.save_for_backward(packed, out, *isect)
         return out
@@ -319,7 +333,7 @@ class _TileComposite(torch.autograd.Function):
         isect = IsectData(*isect_arrays)
         cfg = ctx.cfg
         C, N = cfg.num_cameras, cfg.num_gaussians
-        pgrads = tile_bwd(cfg, isect.tile_starts, packed, out, gout)
+        pgrads = tile_bwd(cfg, isect.tile_starts, packed, out, gout, ctx.tile_offset)
         seg = isect_mod.gather_reduction(pgrads, isect, C * N)  # [N_GROWS, C*N]
 
         def cols(*c):
@@ -327,7 +341,7 @@ class _TileComposite(torch.autograd.Function):
 
         dabs = (cols(isect_mod.GROW_ABSDX, isect_mod.GROW_ABSDY)
                 if ctx.with_abs else None)
-        return (None, None,
+        return (None, None, None,
                 cols(isect_mod.GROW_DX, isect_mod.GROW_DY),
                 cols(isect_mod.GROW_DCA, isect_mod.GROW_DCB, isect_mod.GROW_DCC),
                 cols(isect_mod.GROW_DR, isect_mod.GROW_DG, isect_mod.GROW_DB),
@@ -345,19 +359,17 @@ def composite_tiles(
     depths: torch.Tensor,  # [C, N]
     isect: IsectData,
     abs_dummy: torch.Tensor | None = None,  # [C, N, 2] absgrad hook
-    tile_offset=None,
+    tile_offset: int = 0,  # global id of the slab's first tile
 ) -> torch.Tensor:
     """Differentiable per-tile compositing -> [CT, OUT_CH, P].
 
     Gradients flow to means2d, conics, colors, opacities and depths; the
     gradient of ``abs_dummy`` is the per-gaussian sum of |d means2d| over
-    pixels. ``tile_offset`` (tile-sharded multi-GPU) is not ported."""
-    if tile_offset is not None:
-        raise NotImplementedError(
-            "tile_offset (tile-sharded multi-GPU rasterization) is not ported "
-            "yet: it comes with the multi-GPU slice")
-    return _TileComposite.apply(cfg, isect, means2d, conics, colors, opacities,
-                                depths, abs_dummy)
+    pixels. With ``cfg.ct_local`` the isect is a slab's
+    (``build_intersections(tile_lo=...)``) and ``tile_offset`` its
+    ``tile_lo``."""
+    return _TileComposite.apply(cfg, isect, int(tile_offset), means2d, conics, colors,
+                                opacities, depths, abs_dummy)
 
 
 def tiles_to_image(cfg: RasterCfg, tile_out: torch.Tensor):

@@ -12,13 +12,22 @@ backends, as in the JAX package:
 ``impl=None`` takes "tiled" for ``IsectCaps`` and "stream" otherwise.
 Gradients reach means, quats, scales, opacities and colours, and the
 ``means2d_dummy`` / ``absgrad_dummy`` hooks that densification reads.
+
+The multi-GPU hooks, as in the JAX package: ``proj_transform`` maps the
+projection (of this rank's gaussian shard) to the gathered one
+(``parallel.comm.gather_gauss``), and ``st_shard=(gauss group, n)``
+splits the (camera, supertile) grid into ``n`` slabs: this rank builds
+and composites only its own (``composite_slab``), and the slabs are
+gathered into the image (``parallel.comm.gather_slabs``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from splat_one_tpu_torch.ops import intersect as isect_mod
 from splat_one_tpu_torch.ops import stream_isect as si_mod
@@ -28,6 +37,45 @@ from splat_one_tpu_torch.ops.projection import Projected, project_gaussians
 from splat_one_tpu_torch.ops.stream_isect import StreamCaps
 from splat_one_tpu_torch.ops.stream_raster import StreamCfg
 from splat_one_tpu_torch.ops.tile_raster import RasterCfg
+from splat_one_tpu_torch.parallel import comm
+
+
+def slab_cfg(caps: StreamCaps, width: int, height: int, tile_size: int, C: int, N: int,
+             n: int, camera_model: str = "pinhole", absgrad: bool = False):
+    """(cfg of one of ``n`` supertile slabs, its ``cs_local``, the grid's
+    ``cs_global``): ``cs_local = ceil(cs_global / n)``, so the last slabs
+    may end in phantom cells past the grid, which stay empty."""
+    _, _, sgw, sgh = si_mod.supertile_grid(width, height, tile_size, caps.ss)
+    cs_global = C * sgw * sgh
+    cs_local = -(-cs_global // n)
+    cfg = StreamCfg(width=width, height=height, tile_size=tile_size, num_cameras=C,
+                    num_gaussians=N, chunk=caps.chunk, exp_cap=caps.exp_cap,
+                    n_supertiles=sgw * sgh, wrap_x=camera_model == "spherical",
+                    absgrad=absgrad, ss=caps.ss, cs_local=cs_local)
+    return cfg, cs_local, cs_global
+
+
+def composite_slab(proj: Projected, i: int, n: int, width: int, height: int,
+                   tile_size: int, caps: StreamCaps, camera_model: str = "pinhole",
+                   absgrad_dummy: Optional[torch.Tensor] = None):
+    """One rank's share of a supertile-sharded render: slab ``i`` of ``n``
+    of the (camera, supertile) grid, from the gathered projection ``proj``
+    (every gaussian) -> ``(out [cs_local, NT, OUT_CH, P], isect)``.
+    Differentiable in ``proj`` as ``composite_stream``; ``caps`` are
+    per-slab. No collective: the per-rank body of
+    ``parallel.tile_sharded`` and ``parallel.ring_sharded``."""
+    C, N = proj.depths.shape
+    cfg, cs_local, _ = slab_cfg(caps, width, height, tile_size, C, N, n, camera_model,
+                                absgrad=absgrad_dummy is not None)
+    st_lo = i * cs_local
+    proj_sg = Projected(*(x.detach() for x in proj))
+    isect = si_mod.build_stream_intersections(
+        proj_sg, width, height, tile_size, caps, camera_model=camera_model,
+        st_lo=st_lo, n_st_local=cs_local)
+    out = stream_raster.composite_stream(
+        cfg, proj.means2d, proj.conics, proj.colors, proj.opacities, proj.depths,
+        proj_sg.radii, isect, abs_dummy=absgrad_dummy, tile_offset=st_lo)
+    return out, isect
 
 
 def rasterization(
@@ -55,20 +103,30 @@ def rasterization(
     means2d_dummy: Optional[torch.Tensor] = None,  # [C, N, 2] grad hook
     absgrad_dummy: Optional[torch.Tensor] = None,  # [C, N, 2] absgrad hook
     impl: Optional[str] = None,  # "stream" | "tiled"; inferred from caps
-    proj_transform=None,
-    st_shard=None,
+    proj_transform=None,  # Projected -> Projected, after the projection
+    st_shard=None,  # (gauss process group, n slabs): stream impl only
 ):
     """Render gaussians into C cameras. Differentiable.
 
     Returns ``(render_colors [C,H,W,3|4|1], render_alphas [C,H,W,1],
-    info)``; ``info`` holds ``radii``, ``radii_local`` (the same: there is
-    no ``proj_transform`` yet), ``depths``, ``valid``, ``n_isect``,
+    info)``; ``info`` holds ``radii``, ``radii_local`` (before
+    ``proj_transform``), ``depths``, ``valid``, ``n_isect``,
     ``overflow``, ``width``, ``height`` and ``n_cameras``.
 
     ``means2d_dummy`` (zeros) is added to the projected means, so its
     gradient is d(loss)/d(means2d): the counterpart of gsplat's retained
     ``means2d.grad``. ``absgrad_dummy``'s gradient is the per-gaussian sum
-    of |d(loss)/d(means2d)| over pixels."""
+    of |d(loss)/d(means2d)| over pixels (of this rank's slab, under
+    ``st_shard``; it is shaped like the transformed projection).
+
+    ``proj_transform`` (multi-GPU): applied to the projection of this
+    rank's gaussians after ``means2d_dummy`` is added, so that dummy's
+    gradient stays shard-shaped; ``parallel.comm.gather_gauss`` gathers
+    the gauss ranks' projections and sends the field gradients back.
+    ``st_shard=(group, n)``: this rank (``dist.get_rank(group)``) builds
+    and composites slab ``i`` of ``n`` (``composite_slab``; ``caps`` are
+    per-slab), the slabs are gathered by ``comm.gather_slabs``;
+    ``n_isect`` is the largest slab's and ``overflow`` any slab's."""
     if render_mode not in ("RGB", "RGB+ED", "RGB+D", "ED", "D"):
         raise ValueError(f"bad render_mode {render_mode!r}")
     if rasterize_mode not in ("classic", "antialiased"):
@@ -77,14 +135,8 @@ def rasterization(
         impl = "tiled" if isinstance(caps, IsectCaps) else "stream"
     if impl not in ("stream", "tiled"):
         raise ValueError(f"bad impl {impl!r}")
-    if st_shard is not None:
-        raise NotImplementedError("st_shard (multi-GPU supertile slabs) is "
-                                  "not ported yet: it comes with the "
-                                  "multi-GPU slice")
-    if proj_transform is not None:
-        raise NotImplementedError("proj_transform (multi-GPU gather of "
-                                  "projections) is not ported yet: it comes "
-                                  "with the multi-GPU slice")
+    if st_shard is not None and impl != "stream":
+        raise ValueError("st_shard needs impl='stream'")
 
     N = means.shape[0]
     C = viewmats.shape[0]
@@ -99,6 +151,10 @@ def rasterization(
     )
     if means2d_dummy is not None:
         proj = proj._replace(means2d=proj.means2d + means2d_dummy)
+    radii_local = proj.radii.detach()
+    if proj_transform is not None:
+        proj = proj_transform(proj)
+        N = proj.means2d.shape[1]  # the gathered gaussian count
     # the layout is integer bookkeeping: built from a detached projection
     proj_sg = Projected(*(x.detach() for x in proj))
     wrap = camera_model == "spherical"
@@ -106,13 +162,22 @@ def rasterization(
         if not isinstance(caps, StreamCaps):
             _, _, sgw, sgh = si_mod.supertile_grid(width, height, tile_size)
             caps = StreamCaps.choose(N, C, C * sgw * sgh)
-        cfg = StreamCfg.from_caps(caps, width, height, tile_size, C, N,
-                                  wrap_x=wrap, absgrad=(absgrad_dummy is not None))
-        isect = si_mod.build_stream_intersections(
-            proj_sg, width, height, tile_size, caps, camera_model=camera_model)
-        out = stream_raster.composite_stream(
-            cfg, proj.means2d, proj.conics, proj.colors, proj.opacities,
-            proj.depths, proj_sg.radii, isect, abs_dummy=absgrad_dummy)
+        if st_shard is not None:
+            group, n = st_shard
+            out, isect = composite_slab(proj, dist.get_rank(group), n, width, height,
+                                        tile_size, caps, camera_model, absgrad_dummy)
+            cfg, _, cs_global = slab_cfg(caps, width, height, tile_size, C, N, n,
+                                         camera_model)
+            out = comm.gather_slabs(out, group, cs_global)
+            cfg = dataclasses.replace(cfg, cs_local=0)
+        else:
+            cfg = StreamCfg.from_caps(caps, width, height, tile_size, C, N, wrap_x=wrap,
+                                      absgrad=(absgrad_dummy is not None))
+            isect = si_mod.build_stream_intersections(
+                proj_sg, width, height, tile_size, caps, camera_model=camera_model)
+            out = stream_raster.composite_stream(
+                cfg, proj.means2d, proj.conics, proj.colors, proj.opacities,
+                proj.depths, proj_sg.radii, isect, abs_dummy=absgrad_dummy)
         rgb, alpha, depth = stream_raster.stream_to_image(cfg, out)
     else:
         if not isinstance(caps, IsectCaps):
@@ -141,13 +206,18 @@ def rasterization(
     else:
         render = depth
 
+    n_isect, overflow = isect.n_isect, isect.overflow
+    if st_shard is not None:
+        # growth follows the fullest slab; overflow anywhere is everyone's
+        n_isect = comm.pmax(n_isect, st_shard[0])
+        overflow = comm.psum(overflow.int(), st_shard[0]) > 0
     info = {
         "radii": proj_sg.radii,
-        "radii_local": proj_sg.radii,
+        "radii_local": radii_local,
         "depths": proj.depths,
         "valid": proj.valid,
-        "n_isect": isect.n_isect,
-        "overflow": isect.overflow,
+        "n_isect": n_isect,
+        "overflow": overflow,
         "width": width,
         "height": height,
         "n_cameras": C,

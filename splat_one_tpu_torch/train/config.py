@@ -102,7 +102,8 @@ class Config:
     raster_impl: str = "stream"
     # stream-impl exp_cap sizing: avg supertiles per gaussian
     avg_supertiles_per_gaussian: float = 4.0
-    # multi-device exchange of projected fields ("ring" | "all_gather")
+    # multi-device exchange of projected fields ("ring" | "all_gather"), as
+    # the JAX Config names it; the port takes one all_gather for both
     gauss_exchange: str = "ring"
     seed: int = 42
 

@@ -36,10 +36,12 @@ def depth_loss(render_depth: torch.Tensor, gt_depth: torch.Tensor,
 
 
 def regularizers(params, alive: torch.Tensor, opacity_reg: float = 0.0,
-                 scale_reg: float = 0.0) -> torch.Tensor:
-    """Opacity and scale penalties, averaged over the alive gaussians."""
+                 scale_reg: float = 0.0, n_alive=None) -> torch.Tensor:
+    """Opacity and scale penalties, averaged over the alive gaussians
+    (``n_alive`` of them: the whole model's count where ``params`` are one
+    shard of it)."""
     out = torch.zeros((), device=alive.device)
-    n = torch.clamp(torch.sum(alive).float(), min=1.0)
+    n = torch.clamp((torch.sum(alive) if n_alive is None else n_alive).float(), min=1.0)
     if opacity_reg > 0:
         o = torch.sigmoid(params["opacities"])
         out = out + opacity_reg * torch.sum(torch.where(alive, o, torch.zeros_like(o))) / n

@@ -120,7 +120,18 @@ def test_gather_reduction(case):
 
 
 def test_tile_sharding_is_refused():
+    """A tile slab needs both its start and its size (one alone is
+    refused); a slab's layout holds the whole build's tiles of its range
+    (the slab path against JAX's: tests/test_torch_slab.py)."""
     _, pt, w, h = _projections(*CASES["pinhole"])
     caps = tis.IsectCaps.choose(600, 2, 12)
-    with pytest.raises(NotImplementedError):
-        tis.build_intersections(pt, w, h, 16, caps, tile_lo=0, n_tiles_local=12)
+    with pytest.raises(ValueError):
+        tis.build_intersections(pt, w, h, 16, caps, tile_lo=3)
+    with pytest.raises(ValueError):
+        tis.build_intersections(pt, w, h, 16, caps, n_tiles_local=12)
+    full = tis.build_intersections(pt, w, h, 16, caps)
+    slab = tis.build_intersections(pt, w, h, 16, caps, tile_lo=5, n_tiles_local=12)
+    fs, ss = full.tile_starts.long(), slab.tile_starts.long()
+    for t in range(12):
+        assert torch.equal(slab.slot_rank[ss[t]:ss[t + 1]],
+                           full.slot_rank[fs[5 + t]:fs[6 + t]]), t

@@ -124,9 +124,11 @@ def test_rasterization_refuses_what_is_not_ported():
     args, kw = SCENES["pinhole"]()
     t = [torch.as_tensor(x) for x in args[:7]]
     w, h = args[7:]
-    for bad in (dict(st_shard=("gauss", 2)), dict(proj_transform=lambda p: p)):
-        with pytest.raises(NotImplementedError):
-            tras(*t, w, h, **bad)
+    # supertile slabs are a stream-path feature; an identity transform of
+    # the projection (the multi-GPU gather's place) renders as without it
+    with pytest.raises(ValueError):
+        tras(*t, w, h, impl="tiled", st_shard=(None, 2))
+    assert torch.equal(tras(*t, w, h, proj_transform=lambda p: p)[0], tras(*t, w, h)[0])
     # inputs that require grad render (gradients: test_torch_grads.py)
     means = t[0].clone().requires_grad_(True)
     render, _, _ = tras(means, *t[1:], w, h)

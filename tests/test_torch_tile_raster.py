@@ -209,8 +209,10 @@ def test_composite_tiles_grads_match_jax():
     (ttr.composite_tiles(cfg_t, *ts2, it) * torch.as_tensor(wts)).sum().backward()
     for a, b in zip(ts, ts2):
         assert torch.equal(a.grad, b.grad)
-    with pytest.raises(NotImplementedError):
-        ttr.composite_tiles(cfg_t, *ts2, it, tile_offset=torch.zeros(1, dtype=torch.int32))
+    # the whole grid is the slab at offset 0 (nonzero offsets:
+    # tests/test_torch_slab.py)
+    assert torch.equal(ttr.composite_tiles(cfg_t, *ts2, it, tile_offset=0),
+                       ttr.composite_tiles(cfg_t, *ts2, it))
 
 
 def test_tile_kernels_reject_other_devices():

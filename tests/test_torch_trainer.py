@@ -37,6 +37,7 @@ from splat_one_tpu.train.trainer import Trainer as JTrainer
 from splat_one_tpu_torch.app import viewer
 from splat_one_tpu_torch.data.synthetic import make_synthetic_scene
 from splat_one_tpu_torch.core.transforms import quat_to_rotmat
+from splat_one_tpu_torch.parallel.train_step import Mesh, make_mesh
 from splat_one_tpu_torch.train.config import Config
 from splat_one_tpu_torch.train.strategy import DefaultStrategyCfg, MCMCStrategyCfg
 from splat_one_tpu_torch.train.trainer import SceneData, Trainer
@@ -162,11 +163,18 @@ def test_trainer_densifies_and_checkpoints(scene, tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(scene, tmp_path):
-    """Mesh (multi-GPU) training is the one refusal left; entry points run
-    on CUDA unless asked for the CPU, and raise without a card."""
+    """Mesh (multi-GPU) training takes the stream rasterizer only, a known
+    ``gauss_exchange`` and a process group (tests/test_torch_mesh.py trains on one); entry points
+    run on CUDA unless asked for the CPU, and raise without a card."""
     ok = dict(result_dir=str(tmp_path), capacity=512, camera_model="pinhole")
-    with pytest.raises(NotImplementedError, match="Slice E"):
-        Trainer(Config(**ok), SceneData(*scene), mesh=object(), device="cpu")
+    one = Mesh(shape={"data": 1, "gauss": 1}, d=0, g=0, gauss_group=None, data_group=None,
+               device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="raster_impl"):
+        Trainer(Config(**ok, raster_impl="tiled"), SceneData(*scene), mesh=one, device="cpu")
+    with pytest.raises(ValueError, match="gauss_exchange"):
+        Trainer(Config(**ok, gauss_exchange="tree"), SceneData(*scene), mesh=one, device="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh(1, 1, "cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Trainer(Config(**ok), SceneData(*scene))

@@ -104,7 +104,11 @@ def test_port_never_imports_jax():
             "splat_one_tpu_torch.utils.tensorboard",
             "splat_one_tpu_torch.utils.device", "splat_one_tpu_torch.ops.intersect",
             "splat_one_tpu_torch.ops.tile_raster", "splat_one_tpu_torch.ops.seg_broadcast",
-            "splat_one_tpu_torch.data.synthetic"} <= set(mods)
+            "splat_one_tpu_torch.data.synthetic", "splat_one_tpu_torch.parallel.comm",
+            "splat_one_tpu_torch.parallel.multihost",
+            "splat_one_tpu_torch.parallel.train_step",
+            "splat_one_tpu_torch.parallel.tile_sharded",
+            "splat_one_tpu_torch.parallel.ring_sharded"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke', 'raster_anatomy', 'reduce_anatomy']:\n"
