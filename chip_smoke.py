@@ -108,6 +108,33 @@ Phases (any failure exits non-zero and prints no result line):
      steps with a refine, the first loss within 1e-5 rel of phase 5b's,
      its gathered checkpoint through the viewer's loader, its sharded
      checkpoint round-tripped equal, the process group destroyed;
+  8. SfM on the card (run after phase 7, before phase 6 prints; no kernel
+     of the script's table lies on this path): (a) the port's SfM
+     functions on CPU tensors and on the card, at the CPU tests' bars, on
+     8 ring views of the textured sphere at 128x128 (the script's torch
+     copy of tests/test_app_pipeline.py's ray tracer): extract_features
+     and extract_hahog (the blurred levels within 1e-6 of the CPU's, at
+     most 0.5 % of the valid keypoints unstable: in one set only or moved
+     > 0.05 px; scales exact; fed the CPU's blurred levels, the same
+     keypoints, xys, orientations and descriptors within 1e-4), match_pairs_batched (equal), ransac_essential (8-point, 1024
+     hypotheses; 5-point, 256) and ransac_pnp with the same draws (the
+     same inlier masks), bundle_adjust (cost within 1e-4 rel, cameras and
+     points within 1e-4 of the extent; its host syncs counted); (b)
+     BASELINE config 3 (scripts/sfm_scale_bench.py): 60 spiral views at
+     256x256 rendered on the card, the true focal set through
+     CameraModelManager, then `cli detect-features --max-keypoints 1500
+     --feature-process-size 256`, `match-features --order-neighbors 8
+     --vlad-neighbors 6`, `create-tracks` and `reconstruct` in process:
+     each stage's wall time and peak memory, the time of the device
+     pieces, every view registered, aligned centre errors (median < 0.08,
+     max < 0.15 of the spread), the final global bundle replayed for LM
+     iterations/s and host syncs per call; (c) the same 60 poses at
+     1024x1024 through `detect-features` and `match-features` at their
+     defaults (+ 8 order and 6 VLAD neighbours): keypoints per image,
+     pairs and matches kept, stage times and peak memory, ms a pair of
+     the batched matching and of the batched verification; (d) `cli train
+     --max-steps 20` on (b)'s workdir: the stream kernels launched, the
+     loss falls;
   6. the kernels line (JSON; the forward rows also carry spherical_ms and
      spherical_bound_ms; the seg_reduce row is the stream reduction path,
      with its kernel's and its tiled launch's figures beside), then the
@@ -2619,6 +2646,606 @@ def slab_phase(dev, card, sc, scene, first_loss, max_err):
     return dict(path), offset_ms
 
 
+# ------------------------------------------------- phase 8: SfM on the card
+# (b): BASELINE config 3 (scripts/sfm_scale_bench.py:34-100): a two-turn
+# spiral of views at 256 px, 1500 keypoints, 8 order + 6 VLAD neighbours
+SFM_VIEWS, SFM_RES, SFM_KP, SFM_ORDER, SFM_VLAD = 60, 256, 1500, 8, 6
+SFM_FULL_RES = 1024  # (c): the CLI's default feature_process_size
+SFM_A_VIEWS, SFM_A_RES = 8, 128  # (a): the card against the CPU
+SFM_TRAIN_STEPS = 20  # (d)
+SFM_MEDIAN_BAR, SFM_MAX_BAR = 0.08, 0.15  # of the spread (tests/test_app_pipeline.py:133-134)
+
+
+def sphere_images(dev, c2ws, Ks, W, H, R_s=5.0, seed=0):
+    """The textured-sphere ray tracer of tests/test_app_pipeline.py on
+    ``dev``: the same 300 plane waves drawn by numpy from ``seed``, each
+    view's rays cast from its c2w and K (f32), the image normalized to
+    [0, 1]. Returns uint8 [H, W] arrays."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n_wave = 300
+    k = rng.normal(size=(n_wave, 3))
+    k *= rng.uniform(2.0, 35.0, (n_wave, 1)) / np.linalg.norm(k, axis=1, keepdims=True)
+    ph = rng.uniform(0, 2 * np.pi, n_wave)
+    amp = rng.uniform(0.3, 1.0, n_wave) / np.sqrt(n_wave)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    k, ph, amp = t(k), t(ph), t(amp)
+    v, u = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32) + 0.5,
+                          torch.arange(W, device=dev, dtype=torch.float32) + 0.5, indexing="ij")
+    out = []
+    for c2w, K in zip(c2ws, Ks):
+        d = torch.stack([(u - float(K[0, 2])) / float(K[0, 0]),
+                         (v - float(K[1, 2])) / float(K[1, 1]), torch.ones_like(u)], -1)
+        d = (d @ t(c2w[:3, :3]).T).reshape(-1, 3)
+        d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        o = t(c2w[:3, 3])
+        b = d @ o
+        tt = -b + torch.sqrt(torch.clamp(b * b - (o @ o - R_s ** 2), min=0))
+        p = o + tt[:, None] * d
+        img = torch.cat([torch.cos(c @ k.T + ph) @ amp for c in p.split(1 << 18)])
+        img = (img - img.min()) / (img.max() - img.min())
+        out.append((img.reshape(H, W) * 255).to(torch.uint8).cpu().numpy())
+    return out
+
+
+def spiral_cameras(n, W, H, radius=2.0, fov_deg=60.0, turns=2.0, z0=-0.6, z1=0.6):
+    """scripts/sfm_scale_bench.py's look_at_spiral: n views on a two-turn
+    spiral around the sphere, looking at its centre."""
+    from splat_one_tpu_torch.data.synthetic import look_at
+
+    f = 0.5 * W / np.tan(np.radians(fov_deg) / 2)
+    c2ws, Ks = [], []
+    for i in range(n):
+        a = 2 * np.pi * turns * i / n
+        h = z0 + (z1 - z0) * i / max(n - 1, 1)
+        c2ws.append(look_at(np.array([radius * np.cos(a), h, radius * np.sin(a)]), np.zeros(3)))
+        Ks.append(np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32))
+    return np.stack(c2ws), np.stack(Ks)
+
+
+def sfm_workdir(dev, wd, c2ws, Ks, W, H):
+    """images/view_NNN.png rendered on the card, ``extract-metadata``
+    through the CLI and the true focal set through CameraModelManager (as
+    scripts/sfm_scale_bench.py does). Returns the render + write seconds."""
+    from PIL import Image
+    from splat_one_tpu_torch.app import cli
+    from splat_one_tpu_torch.app.camera_models import CameraModelManager
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(wd, "images"))
+    for i, im in enumerate(sphere_images(dev, c2ws, Ks, W, H)):
+        Image.fromarray(im).convert("RGB").save(os.path.join(wd, "images", f"view_{i:03d}.png"),
+                                                compress_level=1)
+    t_images = time.perf_counter() - t0
+    with contextlib.redirect_stdout(io.StringIO()):
+        require(cli.main(["extract-metadata", wd, "--device", str(dev)]) == 0, "extract-metadata")
+    mgr = CameraModelManager(wd)
+    for cam_id in list(mgr.models):
+        mgr.set_override(cam_id, focal=float(Ks[0][0, 0] / W))
+    mgr.save()
+    require(mgr.propagate_to_exif() == len(c2ws), "focal override propagated")
+    return t_images
+
+
+def aligned_center_errors(wd, c2ws):
+    """Camera-centre errors of the workdir's reconstruction.json against
+    the GT c2ws after the similarity (Umeyama) alignment, as fractions of
+    the GT centres' mean distance from their centroid; and the number of
+    registered views."""
+    from splat_one_tpu_torch.data.opensfm import Parser
+
+    p = Parser(wd, normalize=False)
+    idx = [int(re.findall(r"\d+", nm)[0]) for nm in p.image_names]
+    A = p.camtoworlds[:, :3, 3].astype(np.float64)
+    B = c2ws[idx, :3, 3].astype(np.float64)
+    muA, muB = A.mean(0), B.mean(0)
+    U, S, Vt = np.linalg.svd((A - muA).T @ (B - muB))
+    D = np.diag([1, 1, np.sign(np.linalg.det(Vt.T @ U.T))])
+    R_al = Vt.T @ D @ U.T
+    scale = np.trace(np.diag(S) @ D) / np.sum((A - muA) ** 2)
+    err = np.linalg.norm(scale * (A - muA) @ R_al.T + muB - B, axis=-1)
+    spread = np.linalg.norm(c2ws[:, :3, 3] - c2ws[:, :3, 3].mean(0), axis=-1).mean()
+    return err / spread, len(idx)
+
+
+def kp_compare(fa, fb):
+    """Valid keypoints of two Features matched at the same scale within
+    half a pixel (a level's keypoints are >= 1 px apart): (matched index
+    pairs, a's unmatched, b's unmatched)."""
+    va = np.flatnonzero(fa.valid.cpu().numpy())
+    vb = np.flatnonzero(fb.valid.cpu().numpy())
+    xa, xb = fa.xys.cpu().numpy(), fb.xys.cpu().numpy()
+    sa, sb = fa.scales.cpu().numpy(), fb.scales.cpu().numpy()
+    pairs, used = [], set()
+    for i in va:
+        same = vb[(sb[vb] == sa[i]) & (np.abs(xb[vb] - xa[i]).max(-1) < 0.5)]
+        if len(same):
+            pairs.append((int(i), int(same[0])))
+            used.add(int(same[0]))
+    return (pairs, sorted(set(va.tolist()) - {i for i, _ in pairs}),
+            sorted(set(vb.tolist()) - used))
+
+
+def kp_diffs(fa, fb, pairs):
+    """Max |xy|, |orientation| (mod 2 pi) and |descriptor| differences over
+    matched keypoints, and whether the scales are equal."""
+    ia = np.array([i for i, _ in pairs], int)
+    ib = np.array([j for _, j in pairs], int)
+    g = lambda f, name, i: getattr(f, name).cpu().numpy()[i]
+    d_or = g(fa, "orientations", ia) - g(fb, "orientations", ib)
+    return (float(np.abs(g(fa, "xys", ia) - g(fb, "xys", ib)).max(initial=0)),
+            float(np.abs((d_or + np.pi) % (2 * np.pi) - np.pi).max(initial=0)),
+            float(np.abs(g(fa, "descriptors", ia) - g(fb, "descriptors", ib)).max(initial=0)),
+            bool(np.array_equal(g(fa, "scales", ia), g(fb, "scales", ib))))
+
+
+def two_view_scene(n=200, noise=1e-3, outliers=0.3, seed=0):
+    """tests/test_sfm_geometry.py's synth_two_view: bearings of n points
+    seen from two poses, noise on the bearings, the first outliers * n of
+    camera 2's replaced by random directions. Returns f32 (b1, b2)."""
+    import torch
+    from splat_one_tpu_torch.sfm.ba import _rodrigues
+
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-1, 1, (n, 3))
+    X[:, 2] += 4.0
+    R = _rodrigues(torch.tensor([0.05, -0.1, 0.02])).double().numpy()
+    b1 = X / np.linalg.norm(X, axis=-1, keepdims=True)
+    X2 = X @ R.T + np.array([0.8, 0.1, -0.05])
+    b2 = X2 / np.linalg.norm(X2, axis=-1, keepdims=True)
+    b1 = b1 + rng.normal(0, noise, b1.shape)
+    b2 = b2 + rng.normal(0, noise, b2.shape)
+    b1 /= np.linalg.norm(b1, axis=-1, keepdims=True)
+    b2 /= np.linalg.norm(b2, axis=-1, keepdims=True)
+    n_out = int(outliers * n)
+    d = rng.normal(size=(n_out, 3))
+    b2[:n_out] = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    return b1.astype(np.float32), b2.astype(np.float32)
+
+
+def ba_problem_arrays(n_cams=6, n_pts=200, noise=1e-3, seed=0):
+    """tests/test_sfm_geometry.py's TestBundleAdjust.make_problem plus its
+    starting point (cameras off by 0.02, points by 0.05, camera 0 at GT):
+    (cams0, X0, cam_idx, pt_idx, bearings, X)."""
+    import torch
+    from splat_one_tpu_torch.sfm.ba import _rodrigues
+
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-1, 1, (n_pts, 3))
+    X[:, 2] += 5
+    cams = []
+    for i in range(n_cams):
+        t_i = np.array([i * 0.4 - 1.0, 0, 0]) + rng.normal(0, 0.05, 3)
+        cams.append(np.concatenate([rng.normal(0, 0.1, 3), t_i]))
+    cams = np.stack(cams).astype(np.float32)
+    ci, pi, bs = [], [], []
+    for c in range(n_cams):
+        R = _rodrigues(torch.as_tensor(cams[c, :3])).double().numpy()
+        p = X @ R.T + cams[c, 3:]
+        b = p / np.linalg.norm(p, axis=-1, keepdims=True) + rng.normal(0, noise, p.shape)
+        bs.append(b / np.linalg.norm(b, axis=-1, keepdims=True))
+        ci += [c] * n_pts
+        pi += list(range(n_pts))
+    rng = np.random.default_rng(1)
+    cams0 = cams + rng.normal(0, 0.02, cams.shape).astype(np.float32)
+    cams0[0] = cams[0]
+    X0 = (X + rng.normal(0, 0.05, X.shape)).astype(np.float32)
+    return cams0, X0, np.array(ci), np.array(pi), np.concatenate(bs), X.astype(np.float32)
+
+
+def _sync():
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def count_syncs(fn):
+    """(fn's result, the host syncs it made): torch's sync debug mode warns
+    at every call that waits for the card; the warnings are counted."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def sfm_card_vs_cpu(dev, card):
+    """Phase 8 (a): the same port functions on CPU tensors and on the
+    card, at the CPU tests' bars."""
+    import torch
+    from splat_one_tpu_torch.data.synthetic import ring_cameras
+    from splat_one_tpu_torch.sfm import ba as B
+    from splat_one_tpu_torch.sfm import features as F
+    from splat_one_tpu_torch.sfm import geometry as geo
+    from splat_one_tpu_torch.sfm import matching as M
+
+    cpu = torch.device("cpu")
+    W = H = SFM_A_RES
+    c2ws, Ks = ring_cameras(SFM_A_VIEWS, 2.0, -0.3, 60.0, W, H)
+    imgs = [im.astype(np.float32) / 255.0 for im in sphere_images(dev, c2ws, Ks, W, H)]
+    log(f"phase 8a: SfM functions on the card against the CPU: {SFM_A_VIEWS} ring views "
+        f"{W}x{H} | {card}")
+    feats_cpu = []
+    for name, fn, from_pyr, sigmas in (
+            ("extract_features", F.extract_features, F.sift_from_pyramid, F.sift_sigmas()),
+            ("extract_hahog", F.extract_hahog, F.hahog_from_pyramid, F.hahog_sigmas())):
+        n_kp = n_only = 0
+        worst, worst_pyr, d_blur, max_moved = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0], 0.0, 0.0
+        for im in imgs:
+            # the blur in f32 on both (a TF32 convolution would differ by ~1e-3)
+            levels = [F._gaussian_blur(torch.as_tensor(im), s) for s in sigmas]
+            for s_, lv in zip(sigmas, levels):
+                lv_card = F._gaussian_blur(torch.as_tensor(im, device=dev), s_).cpu()
+                d_blur = max(d_blur, float((lv - lv_card).abs().max()))
+            fa = fn(torch.as_tensor(im))
+            fb = fn(torch.as_tensor(im, device=dev))
+            pairs, only_a, only_b = kp_compare(fa, fb)
+            # keypoints whose subpixel offset moved > 0.05 px: an ill-conditioned
+            # quadratic fit the blur's rounding decides, as a one-set keypoint
+            moved = [(i, j) for i, j in pairs if np.abs(
+                fa.xys[i].numpy() - fb.xys[j].cpu().numpy()).max() > 0.05]
+            stable = [p_ for p_ in pairs if p_ not in moved]
+            dxy, dor, dde, same = kp_diffs(fa, fb, pairs)
+            require(same and len(pairs) > 20,
+                    f"{name} from the image: {len(pairs)} common, scales {same}")
+            worst = [max(a, b) for a, b in zip(worst, kp_diffs(fa, fb, stable)[:3])]
+            n_kp += len(pairs)
+            n_only += len(only_a) + len(only_b) + len(moved)
+            max_moved = max(max_moved, dxy)
+            # the CPU's blurred levels through the card's detector: the tight bars
+            fc = from_pyr([lv.to(dev) for lv in levels])
+            pairs, only_a, only_b = kp_compare(fa, fc)
+            dxy, dor, dde, same = kp_diffs(fa, fc, pairs)
+            require(not only_a and not only_b and same and max(dxy, dor, dde) <= 1e-4,
+                    f"{name} from the CPU pyramid: {only_a} {only_b} xy {dxy} or {dor} "
+                    f"desc {dde} scales {same}")
+            worst_pyr = [max(a, b) for a, b in zip(worst_pyr, (dxy, dor, dde))]
+            if name == "extract_features":
+                feats_cpu.append(fa)
+        log(f"  {name}: blurred levels within {d_blur:.2e} of the CPU's (bar 1e-6); from the "
+            f"image {n_kp} common valid keypoints over {SFM_A_VIEWS} images, {n_only} unstable "
+            f"(in one set only, or moved > 0.05 px, up to {max_moved:.3f}: an extremum, edge "
+            f"test or subpixel fit the blur's rounding decides; bar 0.5 %); the rest max |xy| "
+            f"{worst[0]:.2e} px, orientation {worst[1]:.2e}, descriptor "
+            f"{worst[2]:.2e}, scales equal; from the CPU's pyramid the same keypoints, |xy| "
+            f"{worst_pyr[0]:.2e}, orientation {worst_pyr[1]:.2e}, descriptor "
+            f"{worst_pyr[2]:.2e} (bars 1e-4)")
+        require(d_blur <= 1e-6, f"{name}: the card's blur differs by {d_blur}")
+        require(n_only <= max(2, 0.005 * n_kp), f"{name}: {n_only} unstable keypoints")
+
+    descs = [f.descriptors.numpy() for f in feats_cpu]
+    valids = [f.valid.numpy() for f in feats_cpu]
+    pairs = M.pairs_to_match(len(descs), device=cpu)
+    ma = M.match_pairs_batched(descs, valids, pairs, device=cpu)
+    mb = M.match_pairs_batched(descs, valids, pairs, device=dev)
+    require(set(ma) == set(mb) and all(np.array_equal(ma[p], mb[p]) for p in ma),
+            "match_pairs_batched: the card's matches differ from the CPU's")
+    log(f"  match_pairs_batched: {len(pairs)} pairs, {sum(len(m) for m in ma.values())} "
+        f"matches, equal on the card and the CPU")
+
+    b1, b2 = two_view_scene()
+    valid = np.arange(256) < 200
+    pad = lambda b: np.concatenate([b, np.tile([[0, 0, 1.0]], (56, 1)).astype(np.float32)])
+    g = torch.Generator().manual_seed(0)
+    for solver, n_hyp in (("8pt", 1024), ("5pt", 256)):
+        u = torch.randint(0, 1 << 30, (n_hyp, 5 if solver == "5pt" else 8), generator=g)
+        res = [geo.ransac_essential(u.to(d), torch.as_tensor(pad(b1), device=d),
+                                    torch.as_tensor(pad(b2), device=d),
+                                    torch.as_tensor(valid, device=d), threshold=0.008,
+                                    solver=solver) for d in (cpu, dev)]
+        inl = [r.inliers.cpu().numpy() for r in res]
+        require(np.array_equal(*inl), f"ransac_essential {solver}: inlier masks differ "
+                                      f"({int(inl[0].sum())} vs {int(inl[1].sum())})")
+        log(f"  ransac_essential {solver}, {n_hyp} hypotheses, the same draws: "
+            f"{int(inl[0].sum())} inliers of 200 (60 outliers), the same masks")
+    rng = np.random.default_rng(3)
+    X = rng.uniform(-1, 1, (60, 3)).astype(np.float32)
+    X[:, 2] += 4
+    R = B._rodrigues(torch.tensor([0.2, -0.1, 0.3])).numpy()
+    p = X @ R.T + np.array([0.5, -0.2, 0.1], np.float32)
+    bb = p / np.linalg.norm(p, axis=-1, keepdims=True) + rng.normal(0, 1e-3, p.shape)
+    bb[:10] = rng.normal(size=(10, 3))
+    bb = (bb / np.linalg.norm(bb, axis=-1, keepdims=True)).astype(np.float32)
+    u = torch.randint(0, 1 << 30, (128, 6), generator=g)
+    res = [geo.ransac_pnp(u.to(d), torch.as_tensor(X, device=d), torch.as_tensor(bb, device=d),
+                          torch.ones(60, dtype=torch.bool, device=d), threshold=0.01)
+           for d in (cpu, dev)]
+    require(np.array_equal(res[0][2].cpu().numpy(), res[1][2].cpu().numpy()),
+            "ransac_pnp: inlier masks differ")
+    dR = float((res[0][0] - res[1][0].cpu()).abs().max())
+    log(f"  ransac_pnp, 128 hypotheses, the same draws: {int(res[0][3])} inliers of 60 (10 "
+        f"outliers), the same masks; |R| diff {dR:.2e}")
+
+    cams0, X0, ci, pi, bs, Xgt = ba_problem_arrays()
+    out = {}
+    for d in (cpu, dev):
+        prob = B.build_problem(ci, pi, bs, 6, 200, device=d)
+        c0, x0 = torch.as_tensor(cams0, device=d), torch.as_tensor(X0, device=d)
+        fn = lambda: B.bundle_adjust(c0, x0, prob, B.BAConfig(max_iterations=15,
+                                                              cg_iterations=25))
+        if d.type == "cuda":  # the first call in the process, then a warm one
+            _, n_sync_cold = count_syncs(fn)
+            out[d.type], n_sync = count_syncs(fn)
+        else:
+            out[d.type], n_sync, n_sync_cold = fn(), None, None
+    out.setdefault("cuda", out["cpu"])  # a CPU rehearsal compares the CPU with itself
+    (ca, xa, ia), (cb, xb, ib) = out["cpu"], out["cuda"]
+    fa, fb = float(ia["final_cost"]), float(ib["final_cost"])
+    ext = float((Xgt.max(0) - Xgt.min(0)).max())
+    dc = float((ca - cb.cpu()).abs().max()) / ext
+    dx = float((xa - xb.cpu()).abs().max()) / ext
+    log(f"  bundle_adjust (6 cameras, 200 points, 15 LM x 25 CG): final cost cpu {fa:.9g} "
+        f"card {fb:.9g} (rel {abs(fa - fb) / fa:.2e}, bar 1e-4); cameras {dc:.2e}, points "
+        f"{dx:.2e} of the extent (bar 1e-4); host syncs in the card's call: {n_sync} (the "
+        f"process's first call: {n_sync_cold})")
+    require(abs(fa - fb) <= 1e-4 * fa and dc <= 1e-4 and dx <= 1e-4,
+            "bundle_adjust: the card's solution differs from the CPU's")
+    return n_sync
+
+
+@contextlib.contextmanager
+def sfm_timers():
+    """Wall time (synchronized) and call count of the SfM's device pieces
+    (ransac_essential, ransac_pnp, triangulate, decompose_essential,
+    bundle_adjust) and of the reconstruction's host-side triangulation and
+    reprojection checks (triangulate_nview, _reproj_ok) wherever the
+    stages call them; also keeps the arguments of every bundle_adjust
+    call."""
+    import collections
+
+    from splat_one_tpu_torch.sfm import ba as B
+    from splat_one_tpu_torch.sfm import geometry as geo
+    from splat_one_tpu_torch.sfm import reconstruct as RC
+
+    spent = collections.defaultdict(float)
+    calls = collections.Counter()
+    ba_calls = []
+    originals = {(mod, name): getattr(mod, name) for mod, name in (
+        (geo, "ransac_essential"), (geo, "ransac_pnp"), (geo, "triangulate"),
+        (geo, "decompose_essential"), (B, "bundle_adjust"), (RC, "triangulate_nview"),
+        (RC, "_reproj_ok"))}
+    host = {"triangulate_nview", "_reproj_ok"}
+
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            if name not in host:
+                _sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if name not in host:
+                _sync()
+            spent[name] += time.perf_counter() - t0
+            calls[name] += 1
+            if name == "bundle_adjust":
+                ba_calls.append((a, kw))
+            return out
+        return timed
+
+    for (mod, name), fn in originals.items():
+        setattr(mod, name, wrap(name, fn))
+    try:
+        yield spent, calls, ba_calls
+    finally:
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
+
+
+def sfm_scale_run(dev, card, tmp):
+    """Phase 8 (b): BASELINE config 3 through the port's CLI on the card."""
+    from splat_one_tpu_torch.app import cli
+    from splat_one_tpu_torch.sfm import ba as B
+    from splat_one_tpu_torch.sfm.reconstruct import ReconstructConfig
+
+    n, W = SFM_VIEWS, SFM_RES
+    wd = os.path.join(tmp, "spiral")
+    c2ws, Ks = spiral_cameras(n, W, W)
+    log(f"phase 8b: SfM at the repo's scale (BASELINE config 3): {n} spiral views {W}x{W}, "
+        f"{SFM_KP} keypoints, {SFM_ORDER} order + {SFM_VLAD} VLAD neighbours, through the "
+        f"port's CLI on the card | {card}")
+    walls = {"images + metadata": sfm_workdir(dev, wd, c2ws, Ks, W, W)}
+    stages = [
+        ("detect-features", ["--max-keypoints", str(SFM_KP), "--feature-process-size", str(W)]),
+        ("match-features", ["--order-neighbors", str(SFM_ORDER), "--vlad-neighbors",
+                            str(SFM_VLAD)]),
+        ("create-tracks", []), ("reconstruct", [])]
+    peaks = {}
+    with sfm_timers() as (spent, calls, ba_calls):
+        for name, extra in stages:
+            if name == "reconstruct":
+                spent_before, calls_before = dict(spent), dict(calls)
+            _reset_peak(dev)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main([name, wd, "--device", str(dev)] + extra)
+            walls[name] = time.perf_counter() - t0
+            peaks[name] = _peak_gib(dev)
+            require(rc == 0, f"cli {name} exited {rc}")
+            if name == "reconstruct":
+                text = buf.getvalue()
+                report = json.loads(text[text.index("{"): text.rindex("}") + 1])
+            log(f"  cli {name}: {walls[name]:.2f} s, peak memory {peaks[name]:.2f} GiB; the "
+                f"device pieces so far: " + ", ".join(
+                    f"{k} {calls[k]}x {spent[k]:.2f} s" for k in sorted(calls)))
+        spent, calls = dict(spent), dict(calls)
+    with open(os.path.join(wd, "matches", "matches.json")) as fh:
+        n_pairs = len(json.load(fh))
+    with open(os.path.join(wd, "tracks.json")) as fh:
+        n_tracks = len(json.load(fh))
+    err, n_reg = aligned_center_errors(wd, c2ws)
+    med, mx = float(np.median(err)), float(err.max())
+    log(f"  {n_reg}/{n} views registered, {report['n_points']} points, {n_pairs} verified "
+        f"pairs, {n_tracks} tracks, init attempts {report.get('init_attempts')}; aligned "
+        f"centre error median {med:.4f}, max {mx:.4f} of the spread (bars {SFM_MEDIAN_BAR}, "
+        f"{SFM_MAX_BAR}; the JAX package on the CPU: 0.0023 median, BASELINE.md:75)")
+    require(n_reg == n and report["n_images"] == n, f"{n_reg} of {n} views registered")
+    require(med < SFM_MEDIAN_BAR and mx < SFM_MAX_BAR, f"centre errors {med} / {mx}")
+    # the final global bundle, replayed: LM iterations/s and host syncs
+    final_iters = ReconstructConfig().final_bundle_max_iterations
+    a, kw = [c for c in ba_calls if c[0][3].max_iterations == final_iters][-1]
+    cams, pts, problem, cfg = a
+    B.bundle_adjust(*a, **kw)  # warm
+    _sync()
+    t0 = time.perf_counter()
+    B.bundle_adjust(*a, **kw)
+    _sync()
+    ba_s = time.perf_counter() - t0
+    local_iters = ReconstructConfig().local_bundle_max_iterations
+    la, lkw = [c for c in ba_calls if c[0][3].max_iterations == local_iters][-1]
+    n_sync = n_sync_local = None
+    if dev.type == "cuda":
+        _, n_sync = count_syncs(lambda: B.bundle_adjust(*a, **kw))
+        _, n_sync_local = count_syncs(lambda: B.bundle_adjust(*la, **lkw))
+    n_edges = int(problem.valid.sum())
+    log(f"  final global bundle: {cams.shape[0]} cameras (padded), {pts.shape[0]} points "
+        f"(padded), {n_edges} edges of {problem.valid.shape[0]}, {cfg.max_iterations} LM x "
+        f"{cfg.cg_iterations} CG iterations in {ba_s * 1e3:.1f} ms = "
+        f"{cfg.max_iterations / ba_s:.1f} LM iterations/s (host clock, synchronized); host "
+        f"syncs per bundle_adjust call: {n_sync} (global), {n_sync_local} (local) | {card}")
+    rec_spent = {k: spent[k] - spent_before.get(k, 0.0) for k in spent}
+    rec_calls = {k: calls[k] - calls_before.get(k, 0) for k in calls}
+    rest = walls["reconstruct"] - sum(rec_spent.values())
+    log(f"  reconstruct's {walls['reconstruct']:.2f} s: " + ", ".join(
+        f"{k} {rec_spent[k]:.2f} s over {rec_calls[k]} calls"
+        for k in sorted(rec_spent, key=rec_spent.get, reverse=True))
+        + f", the rest of the host loop {rest:.2f} s; stage walls "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()))
+    return wd, dict(walls=walls, peaks=peaks, med=med, mx=mx, lm_its=cfg.max_iterations / ba_s,
+                    n_sync=n_sync)
+
+
+def sfm_full_width(dev, card, tmp):
+    """Phase 8 (c): detect-features and match-features at the CLI's
+    defaults on the same poses rendered at 1024x1024."""
+    from splat_one_tpu_torch.app import cli, pipeline
+    from splat_one_tpu_torch.sfm import matching as M
+
+    n, W = SFM_VIEWS, SFM_FULL_RES
+    wd = os.path.join(tmp, "full")
+    c2ws, Ks = spiral_cameras(n, W, W)
+    log(f"phase 8c: the CLI's defaults at full width: the {n} poses at {W}x{W}, "
+        f"detect-features (2048 keypoints, feature_process_size 1024) and match-features "
+        f"(brute force, + {SFM_ORDER} order and {SFM_VLAD} VLAD neighbours) | {card}")
+    t_img = sfm_workdir(dev, wd, c2ws, Ks, W, W)
+    walls = {}
+    for name, extra in (("detect-features", []),
+                        ("match-features", ["--order-neighbors", str(SFM_ORDER),
+                                            "--vlad-neighbors", str(SFM_VLAD)])):
+        _reset_peak(dev)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            require(cli.main([name, wd, "--device", str(dev)] + extra) == 0, f"cli {name}")
+        walls[name] = (time.perf_counter() - t0, _peak_gib(dev))
+    images = pipeline._images(wd)
+    feats = pipeline._load_features(wd, images)
+    n_valid = np.array([int(feats[nm]["valid"].sum()) for nm in images])
+    with open(os.path.join(wd, "matches", "matches.json")) as fh:
+        kept = [len(m) for m in json.load(fh).values()]
+    descs = [feats[nm]["descriptors"] for nm in images]
+    valids = [feats[nm]["valid"] for nm in images]
+    pairs = M.pairs_to_match(n, order_neighbors=SFM_ORDER, descriptors=descs,
+                             desc_valids=valids, vlad_neighbors=SFM_VLAD, device=dev)
+    _sync()
+    t0 = time.perf_counter()
+    raw = M.match_pairs_batched(descs, valids, pairs, device=dev)
+    _sync()
+    t_match = time.perf_counter() - t0
+    bearings = [feats[nm]["bearings"] for nm in images]
+    ang = float(np.median([float(feats[nm]["angular_res"]) for nm in images]))
+    t0 = time.perf_counter()
+    M.robust_filter_matches_batched(raw, bearings, threshold=min(1.6 * ang, 0.008), device=dev)
+    _sync()
+    t_verify = time.perf_counter() - t0
+    n_raw = [len(m) for m in raw.values()]
+    log(f"  images + metadata {t_img:.2f} s; valid keypoints per image: mean "
+        f"{n_valid.mean():.0f}, min {n_valid.min()}, max {n_valid.max()}")
+    log(f"  {len(pairs)} candidate pairs, {int(np.mean(n_raw))} putative matches a pair "
+        f"(mean); {len(kept)} pairs kept with {sum(kept)} verified matches "
+        f"({np.mean(kept):.0f} a pair)")
+    for name, (s, peak) in walls.items():
+        log(f"  cli {name}: {s:.2f} s, peak memory {peak:.2f} GiB | {card}")
+    log(f"  a pair: batched matching {t_match / len(pairs) * 1e3:.2f} ms, batched verification "
+        f"{t_verify / max(len(raw), 1) * 1e3:.2f} ms (host clock, synchronized; "
+        f"{t_match:.2f} s and {t_verify:.2f} s in all)")
+    require(n_valid.min() > 300 and len(kept) > n and sum(kept) > 1000,
+            "too few keypoints or verified pairs at full width")
+    return dict(walls=walls, match_ms=t_match / len(pairs) * 1e3,
+                verify_ms=t_verify / max(len(raw), 1) * 1e3)
+
+
+def sfm_train(dev, card, wd):
+    """Phase 8 (d): ``cli train --max-steps 20`` on (b)'s workdir, from the
+    port's own reconstruction.json. Trainer.train logs every step here (the
+    CLI's default logs the last one only) so the loss can be read."""
+    import functools
+
+    from splat_one_tpu_torch.app import cli
+    from splat_one_tpu_torch.app import pipeline
+    from splat_one_tpu_torch.train.trainer import Trainer
+    from splat_one_tpu_torch.utils import cuda_build
+
+    log(f"phase 8d: cli train --max-steps {SFM_TRAIN_STEPS} on 8b's workdir (the port's SfM "
+        f"output) | {card}")
+    got = {}
+    orig_train, orig_stage = Trainer.train, pipeline.train_splats
+
+    def stage(*a, **kw):
+        got["trainer"], got["hist"] = orig_stage(*a, **kw)
+        return got["trainer"], got["hist"]
+
+    Trainer.train = functools.partialmethod(orig_train, log_every=1)
+    pipeline.train_splats = stage
+    try:
+        _reset_peak(dev)
+        cuda_build.launch_counts.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["train", wd, "--max-steps", str(SFM_TRAIN_STEPS), "--device",
+                           str(dev)])
+        wall = time.perf_counter() - t0
+    finally:
+        Trainer.train, pipeline.train_splats = orig_train, orig_stage
+    counts = dict(cuda_build.launch_counts)
+    require(rc == 0, f"cli train exited {rc}")
+    losses = [h["loss"] for h in got["hist"]]
+    tr = got["trainer"]
+    log(f"  {tr.n_images} images {tr.width}x{tr.height}, {int(tr._n_alive())} gaussians from "
+        f"the SfM points (capacity {tr.capacity}); launches {counts}; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; {wall:.2f} s, peak memory "
+        f"{_peak_gib(dev):.2f} GiB | {card}")
+    require(len(losses) == SFM_TRAIN_STEPS and all(np.isfinite(losses)), "train losses")
+    require(float(np.mean(losses[-5:])) < float(np.mean(losses[:5])), "the loss did not fall")
+    for k in ("stream_fwd", "stream_bwd") if dev.type == "cuda" else ():
+        require(counts.get(k, 0) >= SFM_TRAIN_STEPS, f"{k} launched {counts.get(k, 0)} times")
+    return counts
+
+
+def sfm_phase(dev, card):
+    """Phase 8 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    out = {"n_sync_a": sfm_card_vs_cpu(dev, card)}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sfm_")
+    try:
+        wd, out["b"] = sfm_scale_run(dev, card, tmp)
+        out["d"] = sfm_train(dev, card, wd)
+        out["c"] = sfm_full_width(dev, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 8 wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -2864,6 +3491,8 @@ def main():
     stage_counts = train_stage_phase(dev, card)
     slab_counts, offset_ms = slab_phase(dev, card, sc, rows.pop("scene"), rows["first_loss"],
                                         max_err)
+    torch.cuda.empty_cache()
+    sfm_phase(dev, card)
     kernels = [dict(fwd_row, launches=rows["launches"].get("stream_fwd", 0),
                     max_abs_err=max_err["stream_fwd"])] + rows["kernels"] + [
         dict(tile_fwd_row, launches=rows["tiled_launches"].get("tile_fwd", 0),

@@ -1,25 +1,33 @@
 """Command-line interface: counterpart of ``splat_one_tpu/app/cli.py``.
 
+    python -m splat_one_tpu_torch.app.cli extract-metadata <workdir>
+    python -m splat_one_tpu_torch.app.cli detect-features <workdir>
+    python -m splat_one_tpu_torch.app.cli match-features <workdir>
+    python -m splat_one_tpu_torch.app.cli create-tracks <workdir>
+    python -m splat_one_tpu_torch.app.cli reconstruct <workdir>
+    python -m splat_one_tpu_torch.app.cli run-all <workdir>
     python -m splat_one_tpu_torch.app.cli train <workdir> [--max-steps N] ...
     python -m splat_one_tpu_torch.app.cli train <workdir> --ckpt <npz> [--compression png]
     python -m splat_one_tpu_torch.app.cli viewer <workdir> [--port 8080]
 
 Every subcommand of the JAX package parses with its arguments and
-defaults; ``train`` and ``viewer`` also take ``--device`` (default
-``cuda``). The subcommands whose stages are not ported yet exit non-zero
-and name the slice that ports them.
+defaults; the ported ones also take ``--device`` (default ``cuda``). The
+subcommands whose stages are not ported yet exit non-zero and name the
+slice that ports them; so do the options of later slices (ORB, AKAZE and
+SURF features, ALIKED, LightGlue, the live reconstruction viewer).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
+SFM_COMMANDS = ("extract-metadata", "detect-features", "match-features",
+                "create-tracks", "reconstruct", "run-all")
 # subcommand -> the ROADMAP slice that ports its stage
 NOT_PORTED = {
-    **dict.fromkeys(("extract-metadata", "detect-features", "match-features",
-                     "create-tracks", "reconstruct", "run-all"), "Slice F (SfM)"),
     **dict.fromkeys(("create-masks", "estimate-depth"), "Slice G (learned models)"),
     **dict.fromkeys(("resize", "restore-images", "mask-ui", "visualize-features",
                      "visualize-matches"), "Slice H (the app shell)"),
@@ -30,10 +38,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="splat-one-tpu-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    for name in ("extract-metadata", "detect-features", "match-features",
-                 "create-tracks", "reconstruct", "run-all"):
+    for name in SFM_COMMANDS:
         sp = sub.add_parser(name)
         sp.add_argument("workdir")
+        sp.add_argument("--device", default="cuda")
         if name == "detect-features":
             sp.add_argument("--max-keypoints", type=int, default=2048)
             sp.add_argument("--feature-process-size", type=int, default=1024)
@@ -107,6 +115,58 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _progress(label):
+    def cb(i, n):
+        print(f"\r{label}: {i}/{n}", end="", flush=True)
+        if i == n:
+            print()
+
+    return cb
+
+
+def _sfm(args):
+    """The SfM subcommands (the JAX CLI's stage calls, on ``--device``)."""
+    from splat_one_tpu_torch.app import pipeline
+
+    wd, dev = args.workdir, args.device
+    if args.cmd == "extract-metadata":
+        n = pipeline.extract_metadata(wd, _progress("metadata"))
+        print(f"extracted metadata for {n} images")
+    elif args.cmd == "detect-features":
+        if args.aliked_checkpoint is not None:
+            raise NotImplementedError("--aliked-checkpoint is not ported yet: ALIKED comes "
+                                      "with Slice G (learned models)")
+        n = pipeline.detect_features(
+            wd, max_keypoints=args.max_keypoints,
+            feature_process_size=args.feature_process_size,
+            feature_type=args.feature_type, progress=_progress("features"), device=dev)
+        print(f"detected features for {n} images")
+    elif args.cmd == "match-features":
+        if args.lightglue_checkpoint is not None:
+            raise NotImplementedError("--lightglue-checkpoint is not ported yet: LightGlue "
+                                      "comes with Slice G (learned models)")
+        n = pipeline.match_features(
+            wd, lowes_ratio=args.lowes_ratio, order_neighbors=args.order_neighbors,
+            gps_neighbors=args.gps_neighbors, vlad_neighbors=args.vlad_neighbors,
+            matching_type=args.matching_type, progress=_progress("matching"), device=dev)
+        print(f"matched {n} pairs")
+    elif args.cmd == "create-tracks":
+        n = pipeline.create_tracks(wd)
+        print(f"built {n} tracks")
+    else:  # reconstruct, run-all
+        if args.live_viewer_port:
+            raise NotImplementedError(pipeline.LIVE_VIEWER_LATER)
+        if args.cmd == "run-all":
+            pipeline.extract_metadata(wd, _progress("metadata"))
+            pipeline.detect_features(wd, progress=_progress("features"), device=dev)
+            pipeline.match_features(wd, progress=_progress("matching"), device=dev)
+            pipeline.create_tracks(wd)
+        report = pipeline.reconstruct(
+            wd, live_viewer_port=args.live_viewer_port,
+            bundle_use_gps=args.bundle_use_gps, gps_sd_m=args.gps_sd_m, device=dev)
+        print(json.dumps(report, indent=2, default=str))
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd in NOT_PORTED:
@@ -114,7 +174,13 @@ def main(argv=None) -> int:
               f"{NOT_PORTED[args.cmd]}", file=sys.stderr)
         return 2
     t0 = time.time()
-    if args.cmd == "train":
+    if args.cmd in SFM_COMMANDS:
+        try:
+            _sfm(args)
+        except NotImplementedError as e:  # an option of a later slice
+            print(f"splat-one-tpu-torch: {e}", file=sys.stderr)
+            return 2
+    elif args.cmd == "train":
         from splat_one_tpu_torch.app import pipeline
         from splat_one_tpu_torch.train.config import Config
         from splat_one_tpu_torch.train.strategy import DefaultStrategyCfg, MCMCStrategyCfg

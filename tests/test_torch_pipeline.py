@@ -12,10 +12,11 @@ package, on a tiny workdir the test writes: an OpenSfM
   writes the val stats (equal to the trained Trainer's eval), the
   trajectory frames (RGB | depth, 128x48) and the compressed planes with
   their stats.
-- ``cli`` parses every subcommand as the JAX parser does (``train`` and
-  ``viewer`` add ``--device``); ``train`` and ``viewer`` reach
-  ``train_splats`` / ``serve_workdir`` with the JAX CLI's arguments;
-  an unported subcommand exits non-zero and names its slice.
+- ``cli`` parses every subcommand as the JAX parser does (``train``,
+  ``viewer`` and the SfM subcommands add ``--device``); ``train`` and
+  ``viewer`` reach ``train_splats`` / ``serve_workdir`` with the JAX
+  CLI's arguments; an unported subcommand exits non-zero and names its
+  slice.
 - ``workdir_server`` answers ``/`` and one ``/render`` from a background
   server on the CPU with a JPEG of the Trainer's size.
 """
@@ -193,7 +194,7 @@ ARGVS = [
 def test_cli_parses_as_jax(monkeypatch, capsys):
     for argv in ARGVS:
         ns = vars(cli.build_parser().parse_args(argv))
-        if argv[0] in ("train", "viewer"):
+        if argv[0] in ("train", "viewer") + cli.SFM_COMMANDS:
             assert ns.pop("device") == "cuda"
         assert ns == _jax_namespace(argv, monkeypatch), argv
 
@@ -222,8 +223,8 @@ def test_cli_parses_as_jax(monkeypatch, capsys):
 
     # an unported subcommand exits non-zero and names the slice that ports it
     capsys.readouterr()
-    assert cli.main(["reconstruct", "w"]) != 0
-    assert "Slice F" in capsys.readouterr().err
+    assert cli.main(["resize", "w", "--max-dim", "512"]) != 0
+    assert "Slice H" in capsys.readouterr().err
     proc = subprocess.run([sys.executable, "-m", "splat_one_tpu_torch.app.cli",
                            "estimate-depth", "w"], cwd=REPO, capture_output=True, text=True,
                           timeout=120)

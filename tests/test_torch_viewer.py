@@ -108,7 +108,13 @@ def test_port_never_imports_jax():
             "splat_one_tpu_torch.parallel.multihost",
             "splat_one_tpu_torch.parallel.train_step",
             "splat_one_tpu_torch.parallel.tile_sharded",
-            "splat_one_tpu_torch.parallel.ring_sharded"} <= set(mods)
+            "splat_one_tpu_torch.parallel.ring_sharded",
+            "splat_one_tpu_torch.sfm.features", "splat_one_tpu_torch.sfm.matching",
+            "splat_one_tpu_torch.sfm.geometry", "splat_one_tpu_torch.sfm.tracks",
+            "splat_one_tpu_torch.sfm.ba", "splat_one_tpu_torch.sfm.reconstruct",
+            "splat_one_tpu_torch.app.exif", "splat_one_tpu_torch.app.image_processing",
+            "splat_one_tpu_torch.app.camera_models", "splat_one_tpu_torch.app.pipeline",
+            "splat_one_tpu_torch.app.cli"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke', 'raster_anatomy', 'reduce_anatomy']:\n"
