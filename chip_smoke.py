@@ -135,6 +135,38 @@ Phases (any failure exits non-zero and prints no result line):
      the batched matching and of the batched verification; (d) `cli train
      --max-steps 20` on (b)'s workdir: the stream kernels launched, the
      loss falls;
+  9. the rest of the Features and Matching stages (run after phase 8; no
+     kernel of the script's table lies on this path): (a) ORB, AKAZE
+     (MSURF, MLDB), SURF (hessian threshold 500), ALIKED aliked-n16 and
+     the compact tier (random weights from a seeded generator), each on
+     the card against the port on the CPU on spiral view 0 at 1024x1024
+     (the CLI's feature_process_size) with 2048 keypoints: from the image
+     at most 0.5 % of the keypoints unstable (in one set only or moved >
+     0.05 px), scales equal; the tight bars from shared inputs: AKAZE
+     fed the CPU's evolution levels, SURF the CPU's integral image (the
+     same keypoints, xys, orientations and descriptors within 1e-4),
+     ALIKED the same weights (score and feature maps within 1e-4, SDDH
+     at shared keypoints within 1e-4), ORB's BRIEF bits (at most 0.1 %
+     differing); TF32 off for the matmuls and inside the convolution
+     scope; ms an image on the card and peak memory; (b) LightGlue's
+     official forward at full width (input 128, 256 wide, 9 layers, 4
+     heads; cvg/LightGlue's ALIKED configuration) with random weights on
+     (a)'s ALIKED n16 features of views 0 and 1 (2048 keypoints a side):
+     the log-assignment's error, card and CPU, against the same forward
+     in float64 on the CPU within 2048 x 2^-24 of its largest entry (the
+     f32 bound of the longest reduction, 2048 keys), ms a pair; the trainable tier's scores within 1e-3 of the CPU's, ms
+     a pair; (c) the first 24
+     views of (b)'s spiral at 256 px (cut from 60 for the phase's
+     budget) through `cli detect-features --feature-type ORB|AKAZE|SURF`
+     and `ALIKED --aliked-checkpoint` with (a)'s weights as npz, then
+     `match-features` (+ `--matching-type lightglue
+     --lightglue-checkpoint` with (b)'s for ALIKED), `create-tracks` and
+     `reconstruct`: keypoints a view, verified pairs, views registered and
+     the centre error (no registration bar: the JAX package holds none
+     for these detectors; random weights match nothing); (d)
+     `rig_constrained_adjust` (tests/test_rigs.py's stereo rig) on the
+     card against the CPU: cost within 1e-4 rel, cameras, points and the
+     calibrated relative within 1e-4 of the extent;
   6. the kernels line (JSON; the forward rows also carry spherical_ms and
      spherical_bound_ms; the seg_reduce row is the stream reduction path,
      with its kernel's and its tiled launch's figures beside), then the
@@ -3246,6 +3278,385 @@ def sfm_phase(dev, card):
     return out
 
 
+# ------------------------- phase 9: the rest of the Features and Matching stages
+FEAT_RES = 1024  # (a): the CLI's feature_process_size, one spiral view rendered at it
+FEAT_KP = 2048  # (a), (b): the CLI's max_keypoints; LightGlue's keypoints a side
+FEAT_VIEWS = 24  # (c): the first views of 8b's spiral (cut from 60 for the phase's budget)
+FEAT_UNSTABLE = 0.005  # (a) from the image: at most this share of keypoints unstable
+MAP_TOL = 1e-4  # (a): ALIKED's score and feature maps, card vs CPU, abs
+LG_TOL = 1e-3  # (b): the trainable tier's scores, card vs CPU, abs
+# (b): the official forward's error against a float64 run on the CPU, of
+# its largest entry: the f32 bound of the longest reduction (K = 2048 keys,
+# K * 2^-24). cuBLAS sums a near-uniform attention row over the 2048 keys
+# ~20x less exactly than the CPU's blocked sum (both within the bound)
+LG_RTOL = 2048 * 2.0 ** -24
+SURF_THR = 500.0  # (a): OpenCV's scale; the default 3000 finds no keypoint on this view at 1024 px
+
+
+def _warm_ms(fn, dev, reps=3):
+    """(fn's result, the median ms of ``reps`` warm synchronized calls,
+    their peak device memory in GiB)."""
+    fn()
+    _sync()
+    _reset_peak(dev)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        _sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times), _peak_gib(dev)
+
+
+def _outcome(fa, fb):
+    """Card against CPU features from the same image: (common keypoints,
+    unstable ones: in one set only or moved > 0.05 px; the stable ones'
+    max |xy|, |orientation|, |descriptor| differences, scales equal)."""
+    pairs, only_a, only_b = kp_compare(fa, fb)
+    moved = [(i, j) for i, j in pairs if np.abs(
+        fa.xys[i].cpu().numpy() - fb.xys[j].cpu().numpy()).max() > 0.05]
+    stable = [p_ for p_ in pairs if p_ not in moved]
+    return len(pairs), len(only_a) + len(only_b) + len(moved), kp_diffs(fa, fb, stable)
+
+
+def _exact(name, fa, fb, tol=1e-4):
+    """The tight bars: the same valid keypoints, xys, orientations and
+    descriptors within ``tol``, scales equal."""
+    pairs, only_a, only_b = kp_compare(fa, fb)
+    dxy, dor, dde, same = kp_diffs(fa, fb, pairs)
+    require(not only_a and not only_b and same and max(dxy, dor, dde) <= tol and len(pairs) > 20,
+            f"{name}: {len(pairs)} common, {only_a[:5]} {only_b[:5]}, xy {dxy} or {dor} desc "
+            f"{dde} scales {same}")
+    return len(pairs), dxy, dor, dde
+
+
+def detectors_card_vs_cpu(dev, card):
+    """Phase 9 (a): each new detector on the card against the port on the
+    CPU, one spiral view at FEAT_RES. Returns the rows, ALIKED n16's
+    parameters (for (c)) and its card features of views 0 and 1 (for (b))."""
+    import torch
+    from splat_one_tpu_torch.models import aliked_tpu as AL
+    from splat_one_tpu_torch.sfm import akaze as AK
+    from splat_one_tpu_torch.sfm import orb as OR
+    from splat_one_tpu_torch.sfm import surf as SU
+    from splat_one_tpu_torch.sfm.features import _f32_conv
+
+    cpu = torch.device("cpu")
+    # the parity runs' numerics: matmuls in f32, and the convolution scope
+    # switches cuDNN's TF32 off whatever the global flag says
+    require(not torch.backends.cuda.matmul.allow_tf32, "matmul TF32 is on")
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    with _f32_conv():
+        require(not torch.backends.cudnn.allow_tf32, "_f32_conv left cuDNN's TF32 on")
+    torch.backends.cudnn.allow_tf32 = prev
+    W, K = FEAT_RES, FEAT_KP
+    c2ws, Ks = spiral_cameras(SFM_VIEWS, W, W)
+    ims = [torch.as_tensor(im.astype(np.float32) / 255.0)
+           for im in sphere_images(dev, c2ws[:2], Ks[:2], W, W)]
+    img_c, img_d = ims[0], ims[0].to(dev)
+    log(f"phase 9a: the new detectors on the card against the CPU: spiral view 0 at {W}x{W}, "
+        f"{K} keypoints | {card}")
+    n16_c = AL.init_aliked_ckpt("aliked-n16", device=cpu)
+    n16_d = {k: v.to(dev) for k, v in n16_c.items()}
+    cmp_c = AL.init_aliked(128, device=cpu)
+    cmp_d = {k: v.to(dev) for k, v in cmp_c.items()}
+    dets = [
+        ("ORB", lambda a, p: OR.extract_orb(a, max_keypoints=K), None),
+        ("AKAZE MSURF", lambda a, p: AK.extract_akaze(a, K), "levels"),
+        ("AKAZE MLDB", lambda a, p: AK.extract_akaze(a, K, descriptor="MLDB"), "levels"),
+        ("SURF", lambda a, p: SU.extract_surf(a, K, hessian_threshold=SURF_THR), "integral"),
+        ("ALIKED aliked-n16", lambda a, p: AL.extract_aliked_ckpt(p, a, K), "weights"),
+        ("ALIKED compact", lambda a, p: AL.extract_aliked(p, a, K), "weights"),
+    ]
+    out = {}
+    for name, fn, shared in dets:
+        p_c, p_d = (n16_c, n16_d) if "n16" in name else (cmp_c, cmp_d)
+        t0 = time.perf_counter()
+        fa = fn(img_c, p_c)
+        cpu_s = time.perf_counter() - t0
+        fb, ms, peak = _warm_ms(lambda: fn(img_d, p_d), dev)
+        n_common, n_unstable, (dxy, dor, dde, same) = _outcome(fa, fb)
+        n_valid = int(fa.valid.sum())
+        require(same and n_common > 100, f"{name}: {n_common} common, scales {same}")
+        require(n_unstable <= max(2, FEAT_UNSTABLE * n_common),
+                f"{name}: {n_unstable} unstable keypoints of {n_common}")
+        if name == "ORB":
+            # BRIEF bits of the stable keypoints: a differing bit is a near tie
+            pairs = kp_compare(fa, fb)[0]
+            ia, ib = [i for i, _ in pairs], [j for _, j in pairs]
+            bits = fa.descriptors[ia].numpy() != fb.descriptors[ib].cpu().numpy()
+            require(bits.mean() <= 1e-3, f"ORB: {bits.sum()} BRIEF bits differ")
+            tight = f"BRIEF bits differing {int(bits.sum())} of {bits.size} (bar 0.1 %)"
+        elif shared == "levels":
+            kw = dict(descriptor="MLDB") if "MLDB" in name else {}
+            levels = AK.akaze_evolution(img_c)
+            fc = AK.akaze_from_evolution(levels, K, **kw)
+            fd = AK.akaze_from_evolution([[(L.to(dev), s) for L, s in o] for o in levels], K, **kw)
+            n, exy, eor, ede = _exact(f"{name} from the CPU's levels", fc, fd)
+            tight = (f"from the CPU's {sum(len(o) for o in levels)} levels: the same {n} "
+                     f"keypoints, |xy| {exy:.2e}, orientation {eor:.2e}, descriptor {ede:.2e}")
+        elif shared == "integral":
+            ii = SU._integral(img_c * 255.0)
+            ii_d = SU._integral(img_d * 255.0).cpu()
+            fc = SU.surf_from_integral(img_c, ii, K, hessian_threshold=SURF_THR)
+            fd = SU.surf_from_integral(img_d, ii.to(dev), K, hessian_threshold=SURF_THR)
+            n, exy, eor, ede = _exact(f"{name} from the CPU's integral image", fc, fd)
+            tight = (f"the card's integral image within {float((ii - ii_d).abs().max()):.3g} of "
+                     f"the CPU's (max {float(ii.max()):.4g}); from the CPU's: the same {n} "
+                     f"keypoints, |xy| {exy:.2e}, orientation {eor:.2e}, descriptor {ede:.2e}")
+        else:
+            compact = "compact" in name
+            pad = lambda t: t[None, ..., None] if compact else t[..., None].expand(
+                t.shape + (3,))[None]
+            enc = AL.aliked_forward if compact else AL.aliked_encoder
+            s_c, f_c = enc(p_c, pad(img_c))
+            s_d, f_d = enc(p_d, pad(img_d))
+            es = float((s_c - s_d.cpu()).abs().max())
+            ef = float((f_c - f_d.cpu()).abs().max())
+            require(max(es, ef) <= MAP_TOL, f"{name}: maps differ by {es} / {ef}")
+            tight = f"the same weights: score map within {es:.2e}, features {ef:.2e}"
+            if not compact:
+                xy = fa.xys
+                dc = AL.sddh_descriptors(p_c, f_c[0], xy, K=3, M=16)
+                dd = AL.sddh_descriptors(p_d, f_c[0].to(dev), xy.to(dev), K=3, M=16)
+                ed = float((dc - dd.cpu()).abs().max())
+                require(ed <= 1e-4, f"{name}: SDDH at the CPU's keypoints differs by {ed}")
+                tight += f" (bar {MAP_TOL}); SDDH at shared keypoints {ed:.2e} (bar 1e-4)"
+            del s_c, f_c, s_d, f_d
+        log(f"  {name}: {n_valid} valid keypoints; from the image {n_common} common, "
+            f"{n_unstable} unstable (bar {FEAT_UNSTABLE:.1%}), the rest |xy| {dxy:.2e} px, "
+            f"orientation {dor:.2e}, descriptor {dde:.2e}; {tight}; card {ms:.2f} ms an image "
+            f"(median of 3, host clock, synchronized), peak memory {peak:.3f} GiB; CPU "
+            f"{cpu_s:.2f} s | {card}")
+        out[name] = dict(ms=ms, peak=peak, n_valid=n_valid, unstable=n_unstable)
+        if "n16" in name:
+            f0 = fb
+    f1 = AL.extract_aliked_ckpt(n16_d, ims[1].to(dev), K)
+    return out, n16_c, (f0, f1)
+
+
+def lightglue_card_vs_cpu(dev, card, feats):
+    """Phase 9 (b): LightGlue at full width with random weights, the card
+    against the CPU on the card's ALIKED n16 features of two views."""
+    import torch
+    from splat_one_tpu_torch.models import lightglue_tpu as LG
+
+    cpu = torch.device("cpu")
+    fa, fb = feats
+    size = (FEAT_RES, FEAT_RES)
+    sd_c = LG.init_lightglue_ckpt(device=cpu)  # 128 -> 256, 9 layers, 4 heads
+    sd_d = {k: v.to(dev) for k, v in sd_c.items()}
+    args = [t.cpu().numpy() for t in (fa.xys, fb.xys, fa.descriptors, fb.descriptors)]
+    n_layers = sum(k.endswith("self_attn.Wqkv.weight") for k in sd_c)
+    log(f"phase 9b: LightGlue, the official forward at full width with random weights: input "
+        f"{args[2].shape[1]}, {sd_c['input_proj.weight'].shape[0]} wide, {n_layers} layers, 4 "
+        f"heads, {len(args[0])} x {len(args[1])} keypoints (9a's ALIKED n16, views 0 and 1) "
+        f"| {card}")
+    t0 = time.perf_counter()
+    s_c = LG.lightglue_forward_ckpt(sd_c, *args, size, size)
+    cpu_s = time.perf_counter() - t0
+    s_d, ms, peak = _warm_ms(lambda: LG.lightglue_forward_ckpt(sd_d, *args, size, size), dev)
+    err = float((s_c - s_d.cpu()).abs().max())
+    # 9 random layers grow the logits: rounding, not the port, sets the gap;
+    # both f32 runs are held against the same forward in float64
+    s_64 = LG.lightglue_forward_ckpt({k: v.double() for k, v in sd_c.items()}, *args, size, size)
+    e_cpu = float((s_c.double() - s_64).abs().max())
+    e_card = float((s_d.cpu().double() - s_64).abs().max())
+    bar = LG_RTOL * float(s_64.abs().max())
+    m_c, ok_c = LG.filter_matches_ckpt(s_c)
+    m_d, ok_d = LG.filter_matches_ckpt(s_d)
+    agree = float(np.mean(m_c == m_d))
+    log(f"  log-assignment {tuple(s_d.shape)}: card within {err:.2e} of the CPU (max |s| "
+        f"{float(s_c.abs().max()):.3g}); against float64 on the CPU: card {e_card:.2e}, CPU f32 "
+        f"{e_cpu:.2e} (bar {bar:.2e}: 2048 x 2^-24 of max |s|); argmax rows "
+        f"equal {agree:.4f} (random weights leave near-equal rows), matches kept "
+        f"{int(ok_c.sum())} / {int(ok_d.sum())}; card {ms:.2f} ms a pair (median of 3), peak "
+        f"memory {peak:.3f} GiB; CPU {cpu_s:.2f} s | {card}")
+    require(bool(torch.isfinite(s_d).all()) and max(e_card, e_cpu) <= bar,
+            f"LightGlue: the errors {e_card} (card), {e_cpu} (CPU) against float64 exceed {bar}")
+    p_c = LG.init_lightglue(args[2].shape[1], device=cpu)
+    p_d = {k: v.to(dev) for k, v in p_c.items()}
+    va, vb = fa.valid.cpu().numpy(), fb.valid.cpu().numpy()
+    xy = [a / np.float32(FEAT_RES) for a in args[:2]]
+    t = lambda a, d, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=d)
+    sc = LG.lightglue_scores(p_c, t(args[2], cpu), t(args[3], cpu), t(xy[0], cpu),
+                             t(xy[1], cpu), t(va, cpu, torch.bool), t(vb, cpu, torch.bool))
+    sd_, ms_t, _ = _warm_ms(lambda: LG.lightglue_scores(
+        p_d, t(args[2], dev), t(args[3], dev), t(xy[0], dev), t(xy[1], dev),
+        t(va, dev, torch.bool), t(vb, dev, torch.bool)), dev)
+    errs = [float((a - b.cpu()).abs().max()) for a, b in zip(sc, sd_)]
+    _, ms_m, _ = _warm_ms(lambda: LG.match_lightglue(p_d, args[2], args[3], args[0], args[1], size,
+                                                    size, va, vb), dev)
+    log(f"  trainable tier ({LG.N_LAYERS} layers, {LG.DIM} wide): sim, ma, mb within "
+        f"{errs[0]:.2e}, {errs[1]:.2e}, {errs[2]:.2e} of the CPU (bar {LG_TOL}); card "
+        f"{ms_t:.2f} ms a pair (scores), {ms_m:.2f} ms with the assignment and host copies | "
+        f"{card}")
+    require(max(errs) <= LG_TOL, f"trainable LightGlue differs by {errs}")
+    return dict(ms=ms, err=e_card, ms_trainable=ms_t), sd_c
+
+
+def stages_through_cli(dev, card, tmp, aliked_params, lg_params):
+    """Phase 9 (c): the Features and Matching stages of the new detectors
+    and LightGlue through the CLI, then create-tracks and reconstruct, on
+    the first FEAT_VIEWS views of 8b's spiral at 256 px."""
+    from splat_one_tpu_torch.app import cli, pipeline
+    from splat_one_tpu_torch.models import aliked_tpu as AL
+    from splat_one_tpu_torch.models import lightglue_tpu as LG
+
+    n, W = FEAT_VIEWS, SFM_RES
+    c2ws, Ks = spiral_cameras(SFM_VIEWS, W, W)
+    c2ws, Ks = c2ws[:n], Ks[:n]
+    base = os.path.join(tmp, "feat_base")
+    sfm_workdir(dev, base, c2ws, Ks, W, W)
+    al_npz, lg_npz = os.path.join(tmp, "aliked_n16.npz"), os.path.join(tmp, "lightglue.npz")
+    np.savez(al_npz, **AL.params_to_numpy(aliked_params))
+    np.savez(lg_npz, **LG.params_to_numpy(lg_params))
+    log(f"phase 9c: the stages through the CLI on the first {n} of 8b's {SFM_VIEWS} spiral views "
+        f"(cut for the phase's budget) at {W}x{W}: detect-features --max-keypoints {SFM_KP} "
+        f"--feature-process-size {W}, match-features --order-neighbors {SFM_ORDER} "
+        f"--vlad-neighbors {SFM_VLAD}, create-tracks, reconstruct | {card}")
+    runs = [("ORB", [], []), ("AKAZE", [], []), ("SURF", [], []),
+            ("ALIKED", ["--aliked-checkpoint", al_npz],
+             ["--matching-type", "lightglue", "--lightglue-checkpoint", lg_npz])]
+    out = {}
+    for ft, det_extra, match_extra in runs:
+        wd = os.path.join(tmp, f"feat_{ft}")
+        shutil.copytree(base, wd)
+        walls = {}
+        stages = [("detect-features", ["--feature-type", ft, "--max-keypoints", str(SFM_KP),
+                                       "--feature-process-size", str(W)] + det_extra),
+                  ("match-features", ["--order-neighbors", str(SFM_ORDER), "--vlad-neighbors",
+                                      str(SFM_VLAD)] + match_extra),
+                  ("create-tracks", []), ("reconstruct", [])]
+        report = None
+        for name, extra in stages:
+            if name == "reconstruct" and n_tracks == 0:
+                break
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main([name, wd, "--device", str(dev)] + extra)
+            walls[name] = time.perf_counter() - t0
+            require(rc == 0, f"{ft}: cli {name} exited {rc}")
+            if name == "create-tracks":
+                with open(os.path.join(wd, "tracks.json")) as fh:
+                    n_tracks = len(json.load(fh))
+            if name == "reconstruct":
+                text = buf.getvalue()
+                report = json.loads(text[text.index("{"): text.rindex("}") + 1])
+        images = pipeline._images(wd)
+        feats = pipeline._load_features(wd, images)
+        kp = np.array([int(feats[nm]["valid"].sum()) for nm in images])
+        require(all(feats[nm]["xys"].shape == (SFM_KP, 2) for nm in images), f"{ft}: npz shapes")
+        with open(os.path.join(wd, "matches", "matches.json")) as fh:
+            kept = [len(m) for m in json.load(fh).values()]
+        if report is not None and report.get("n_images", 0) >= 3:
+            err, n_reg = aligned_center_errors(wd, c2ws)
+            rec = (f"{n_reg}/{n} views registered, centre error median {np.median(err):.4f}, "
+                   f"max {err.max():.4f} of the spread")
+        elif report is not None:
+            n_reg = report.get("n_images", 0)
+            rec = f"{n_reg}/{n} views registered"
+        else:
+            n_reg = 0
+            rec = "reconstruct not run: no tracks" + (
+                " (random weights match nothing)" if match_extra else "")
+        log(f"  {ft}{' + LightGlue' if match_extra else ''}: valid keypoints a view mean "
+            f"{kp.mean():.0f} (min {kp.min()}, max {kp.max()}); {len(kept)} verified pairs, "
+            f"{sum(kept)} matches; {n_tracks} tracks; {rec}; walls " + ", ".join(
+                f"{k} {v:.2f} s" for k, v in walls.items()) + f" | {card}")
+        out[ft] = dict(kp=float(kp.mean()), pairs=len(kept), registered=n_reg, walls=walls)
+        shutil.rmtree(wd, ignore_errors=True)
+    return out
+
+
+def rig_scene(n_inst=8, n_pts=60, noise=1e-3, seed=0):
+    """tests/test_rigs.py's stereo rig orbiting a point cloud, with the
+    starting point of its constrained-BA test: (GT X, edges (cam, point,
+    bearing), shot ids, assignments, start cameras, start points)."""
+    from splat_one_tpu_torch.sfm import rigs as RG
+
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-1, 1, (n_pts, 3)).astype(np.float32)
+    rel = np.array([0.0, 0.05, 0.0, 0.2, 0.0, 0.01])
+    poses, assign = {}, {}
+    for i in range(n_inst):
+        ang = 2 * np.pi * i / n_inst
+        c = np.array([3 * np.sin(ang), 0.3 * np.sin(2 * ang), 3 * np.cos(ang)])
+        z = -c / np.linalg.norm(c)
+        x = np.cross(np.array([0, 1.0, 0]), z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])
+        inst = np.concatenate([RG._R_to_rvec(R), -R @ c])
+        poses[f"s{i}_L"], poses[f"s{i}_R"] = inst, RG.compose(rel, inst)
+        assign[f"i{i}"] = [(f"s{i}_L", "camL"), (f"s{i}_R", "camR")]
+    shot_ids = sorted(poses)
+    cams_gt = np.stack([poses[s] for s in shot_ids]).astype(np.float32)
+    ci, pi, bs = [], [], []
+    for k, s in enumerate(shot_ids):
+        p = X @ RG._rvec_to_R(cams_gt[k, :3]).T + cams_gt[k, 3:]
+        b = p / np.linalg.norm(p, axis=-1, keepdims=True) + rng.normal(0, noise, p.shape)
+        bs.append(b / np.linalg.norm(b, axis=-1, keepdims=True))
+        ci += [k] * n_pts
+        pi += list(range(n_pts))
+    rng = np.random.default_rng(4)
+    cams0 = cams_gt + rng.normal(0, 0.01, cams_gt.shape).astype(np.float32)
+    cams0[0] = cams_gt[0]
+    X0 = (X + rng.normal(0, 0.03, X.shape)).astype(np.float32)
+    return (X, (np.array(ci), np.array(pi), np.concatenate(bs).astype(np.float32)), shot_ids,
+            assign, cams0, X0)
+
+
+def rigs_card_vs_cpu(dev, card):
+    """Phase 9 (d): rig_constrained_adjust on the card against the CPU."""
+    import torch
+    from splat_one_tpu_torch.sfm import ba as B
+    from splat_one_tpu_torch.sfm import rigs as RG
+
+    X, (ci, pi, bs), shot_ids, assign, cams0, X0 = rig_scene()
+    res = {}
+    for d in (torch.device("cpu"), dev):
+        prob = B.build_problem(ci, pi, bs, len(shot_ids), len(X), device=d)
+        t0 = time.perf_counter()
+        res[d.type] = RG.rig_constrained_adjust(prob, cams0, X0, shot_ids, assign,
+                                                cfg=B.BAConfig(max_iterations=8, cg_iterations=20),
+                                                rounds=2)
+        _sync()
+        res[d.type + "_s"] = time.perf_counter() - t0
+    (ca, xa, cal_a, ia), (cb, xb, cal_b, ib) = res["cpu"], res[dev.type]
+    fa, fb = float(ia["final_cost"]), float(ib["final_cost"])
+    ext = float((X.max(0) - X.min(0)).max())
+    dc, dx = float(np.abs(ca - cb).max()) / ext, float(np.abs(xa - xb).max()) / ext
+    drel = float(np.abs(cal_a["camR"] - cal_b["camR"]).max())
+    log(f"phase 9d: rig_constrained_adjust (8 instances x 2 cameras, 60 points, 2 rounds of 8 LM "
+        f"x 20 CG): final cost cpu {fa:.9g} card {fb:.9g} (rel {abs(fa - fb) / fa:.2e}, bar "
+        f"1e-4); cameras {dc:.2e}, points {dx:.2e} of the extent, the calibrated relative "
+        f"{drel:.2e} (bars 1e-4); card {res[dev.type + '_s']:.2f} s, CPU {res['cpu_s']:.2f} s "
+        f"| {card}")
+    require(abs(fa - fb) <= 1e-4 * fa and max(dc, dx, drel) <= 1e-4,
+            "rig_constrained_adjust: the card's solution differs from the CPU's")
+    for i in range(8):
+        got = RG.compose(cb[shot_ids.index(f"s{i}_R")], RG.invert(cb[shot_ids.index(f"s{i}_L")]))
+        require(np.allclose(got, cal_b["camR"], atol=1e-6), "the card's poses leave the rig")
+
+
+def features_phase(dev, card):
+    """Phase 9 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    out = {}
+    out["a"], n16_c, feats = detectors_card_vs_cpu(dev, card)
+    out["b"], lg_c = lightglue_card_vs_cpu(dev, card, feats)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_feat_")
+    try:
+        out["c"] = stages_through_cli(dev, card, tmp, n16_c, lg_c)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rigs_card_vs_cpu(dev, card)
+    log(f"  phase 9 wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     import torch
 
@@ -3493,6 +3904,7 @@ def main():
                                         max_err)
     torch.cuda.empty_cache()
     sfm_phase(dev, card)
+    features_phase(dev, card)
     kernels = [dict(fwd_row, launches=rows["launches"].get("stream_fwd", 0),
                     max_abs_err=max_err["stream_fwd"])] + rows["kernels"] + [
         dict(tile_fwd_row, launches=rows["tiled_launches"].get("tile_fwd", 0),

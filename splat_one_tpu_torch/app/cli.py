@@ -13,8 +13,7 @@
 Every subcommand of the JAX package parses with its arguments and
 defaults; the ported ones also take ``--device`` (default ``cuda``). The
 subcommands whose stages are not ported yet exit non-zero and name the
-slice that ports them; so do the options of later slices (ORB, AKAZE and
-SURF features, ALIKED, LightGlue, the live reconstruction viewer).
+slice that ports them; so does the live reconstruction viewer's option.
 """
 
 from __future__ import annotations
@@ -133,22 +132,19 @@ def _sfm(args):
         n = pipeline.extract_metadata(wd, _progress("metadata"))
         print(f"extracted metadata for {n} images")
     elif args.cmd == "detect-features":
-        if args.aliked_checkpoint is not None:
-            raise NotImplementedError("--aliked-checkpoint is not ported yet: ALIKED comes "
-                                      "with Slice G (learned models)")
         n = pipeline.detect_features(
             wd, max_keypoints=args.max_keypoints,
             feature_process_size=args.feature_process_size,
-            feature_type=args.feature_type, progress=_progress("features"), device=dev)
+            feature_type=args.feature_type, aliked_checkpoint=args.aliked_checkpoint,
+            progress=_progress("features"), device=dev)
         print(f"detected features for {n} images")
     elif args.cmd == "match-features":
-        if args.lightglue_checkpoint is not None:
-            raise NotImplementedError("--lightglue-checkpoint is not ported yet: LightGlue "
-                                      "comes with Slice G (learned models)")
         n = pipeline.match_features(
             wd, lowes_ratio=args.lowes_ratio, order_neighbors=args.order_neighbors,
             gps_neighbors=args.gps_neighbors, vlad_neighbors=args.vlad_neighbors,
-            matching_type=args.matching_type, progress=_progress("matching"), device=dev)
+            matching_type=args.matching_type,
+            lightglue_checkpoint=args.lightglue_checkpoint,
+            progress=_progress("matching"), device=dev)
         print(f"matched {n} pairs")
     elif args.cmd == "create-tracks":
         n = pipeline.create_tracks(wd)

@@ -13,10 +13,10 @@ other began:
   tracks.json                 [{image index: feature}, ...]
   reconstruction.json         OpenSfM-compatible cameras/shots/points
 
-The SfM stages take SIFT or HAHOG features and brute-force matching; the
-other detectors (ORB, AKAZE, SURF) come with Slice F2, ALIKED and
-LightGlue with Slice G, the live reconstruction viewer with Slice H.
-Every stage runs on CUDA unless ``device="cpu"`` is passed.
+The SfM stages take every detector of the JAX package (SIFT, HAHOG, ORB,
+AKAZE, SURF, ALIKED) and every matcher (brute force, FLANN, LightGlue);
+the live reconstruction viewer comes with Slice H. Every stage runs on
+CUDA unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
@@ -32,9 +32,7 @@ from splat_one_tpu_torch.utils.device import resolve as resolve_device
 
 ProgressFn = Optional[Callable[[int, int], None]]
 
-# options of the JAX package's stages that later slices port
-LATER_FEATURES = {"ORB": "Slice F2", "AKAZE": "Slice F2", "SURF": "Slice F2",
-                  "ALIKED": "Slice G (learned models)"}
+FEATURE_TYPES = ("SIFT", "HAHOG", "ORB", "AKAZE", "SURF", "ALIKED")
 LIVE_VIEWER_LATER = ("live_viewer_port > 0 is not ported yet: the live reconstruction viewer "
                      "(recon_viewer) comes with Slice H (the app shell)")
 
@@ -107,6 +105,18 @@ def detect_features(
     feature_process_size: int = 1024,
     contrast_threshold: float = 0.01,
     feature_type: str = "SIFT",
+    aliked_checkpoint: str | None = None,
+    akaze_omax: int = 4,
+    akaze_dthreshold: float = 0.001,
+    akaze_descriptor: str = "MSURF",
+    akaze_descriptor_size: int = 0,
+    akaze_descriptor_channels: int = 3,
+    akaze_kcontrast_percentile: float = 0.7,
+    akaze_use_isotropic_diffusion: bool = False,
+    surf_hessian_threshold: float = 3000.0,
+    surf_n_octaves: int = 4,
+    surf_n_octavelayers: int = 2,
+    surf_upright: bool = False,
     hahog_peak_threshold: float = 1e-5,
     hahog_edge_threshold: float = 10.0,
     progress: ProgressFn = None,
@@ -115,22 +125,36 @@ def detect_features(
     """images/ -> features/<img>.features.npz: keypoints in original
     pixels, descriptors, scores, validity (keypoints inside a
     ``masks/<img>.png`` region of value <= 127 dropped), bearings from the
-    camera model and the angular size of one detection pixel. SIFT (the
-    DoG detector, default) or HAHOG (Hessian detector + HOG descriptor;
-    ``hahog_*`` are its thresholds)."""
+    camera model and the angular size of one detection pixel.
+
+    ``feature_type``: SIFT (the DoG detector, default), HAHOG (Hessian
+    detector + HOG descriptor; ``hahog_*``), ORB (FAST + rotated BRIEF),
+    AKAZE (FED nonlinear scale space + Hessian detector + M-SURF / M-LDB;
+    ``akaze_*``), SURF (integral-image fast-Hessian + M-SURF; ``surf_*``)
+    or ALIKED (learned: the checkpoint-faithful network when
+    ``aliked_checkpoint`` is a converted npz in the official schema, else
+    the compact tier)."""
     from PIL import Image
 
     from splat_one_tpu_torch.core import cameras as cam_mod
-    from splat_one_tpu_torch.sfm import features as F
 
     ft = feature_type.upper()
-    if ft in LATER_FEATURES:
-        raise NotImplementedError(
-            f"feature_type {feature_type!r} is not ported yet: it comes with "
-            f"{LATER_FEATURES[ft]}")
-    if ft not in ("SIFT", "HAHOG"):
-        raise ValueError(f"feature_type {feature_type!r}: expected SIFT | HAHOG")
+    if ft not in FEATURE_TYPES:
+        raise ValueError(f"feature_type {feature_type!r}: expected one of "
+                         + " | ".join(FEATURE_TYPES))
     dev = resolve_device(device)
+    extract = _extractor(ft, dev, max_keypoints, contrast_threshold, aliked_checkpoint,
+                         dict(omax=akaze_omax, dthreshold=akaze_dthreshold,
+                              descriptor=akaze_descriptor,
+                              descriptor_size=akaze_descriptor_size,
+                              descriptor_channels=akaze_descriptor_channels,
+                              kcontrast_percentile=akaze_kcontrast_percentile,
+                              isotropic=akaze_use_isotropic_diffusion),
+                         dict(hessian_threshold=surf_hessian_threshold,
+                              n_octaves=surf_n_octaves, n_layers=surf_n_octavelayers,
+                              upright=surf_upright),
+                         dict(peak_threshold=hahog_peak_threshold,
+                              edge_threshold=hahog_edge_threshold))
     images = _images(workdir)
     fdir = os.path.join(workdir, "features")
     os.makedirs(fdir, exist_ok=True)
@@ -143,14 +167,7 @@ def detect_features(
         if max(W0, H0) > feature_process_size:
             scale = feature_process_size / max(W0, H0)
             img = img.resize((int(W0 * scale), int(H0 * scale)))
-        arr = torch.as_tensor(np.asarray(img).astype(np.float32) / 255.0, device=dev)
-        if ft == "HAHOG":
-            feats = F.extract_hahog(arr, max_keypoints=max_keypoints,
-                                    peak_threshold=hahog_peak_threshold,
-                                    edge_threshold=hahog_edge_threshold)
-        else:
-            feats = F.extract_features(arr, max_keypoints=max_keypoints,
-                                       contrast_threshold=contrast_threshold)
+        feats = extract(torch.as_tensor(np.asarray(img).astype(np.float32) / 255.0, device=dev))
         valid = feats.valid.cpu().numpy()
         xys = feats.xys.cpu().numpy() / scale  # original pixel coords
         # masks/<img>.png (0 = masked out, OpenSfM's convention): drop
@@ -193,6 +210,37 @@ def detect_features(
     return len(images)
 
 
+def _extractor(ft, dev, max_keypoints, contrast_threshold, aliked_checkpoint, akaze_kw,
+               surf_kw, hahog_kw):
+    """The detector of ``feature_type`` ``ft`` as a function of the
+    [H, W] image tensor (ALIKED's weights loaded once, on ``dev``)."""
+    from splat_one_tpu_torch.sfm import features as F
+
+    if ft == "SURF":
+        from splat_one_tpu_torch.sfm.surf import extract_surf
+
+        return lambda a: extract_surf(a, max_keypoints=max_keypoints, **surf_kw)
+    if ft == "AKAZE":
+        from splat_one_tpu_torch.sfm.akaze import extract_akaze
+
+        return lambda a: extract_akaze(a, max_keypoints=max_keypoints, **akaze_kw)
+    if ft == "ORB":
+        from splat_one_tpu_torch.sfm.orb import extract_orb
+
+        return lambda a: extract_orb(a, max_keypoints=max_keypoints)
+    if ft == "ALIKED":
+        from splat_one_tpu_torch.models import aliked_tpu
+
+        params = aliked_tpu.load_aliked(aliked_checkpoint, device=dev)
+        fn = (aliked_tpu.extract_aliked_ckpt if aliked_tpu.is_faithful(params)
+              else aliked_tpu.extract_aliked)
+        return lambda a: fn(params, a, max_keypoints=max_keypoints)
+    if ft == "HAHOG":
+        return lambda a: F.extract_hahog(a, max_keypoints=max_keypoints, **hahog_kw)
+    return lambda a: F.extract_features(a, max_keypoints=max_keypoints,
+                                        contrast_threshold=contrast_threshold)
+
+
 def _gps_positions(workdir, images):
     """Per image [east, north, altitude] in one UTM zone, or None where an
     image has no fix (inf rows) / no image has one."""
@@ -217,22 +265,24 @@ def match_features(
     gps_neighbors: int = 0,
     vlad_neighbors: int = 0,
     matching_type: str = "bruteforce",
+    lightglue_checkpoint: str | None = None,
     progress: ProgressFn = None,
     device="cuda",
 ) -> int:
-    """features/ -> matches/matches.json (verified pairs). Brute-force
-    mutual-NN + Lowe ratio, batched over pairs on the device ("flann" is
-    the same exact path); verification by 8-point RANSAC with a
-    resolution-aware threshold (1.6 detection pixels of angle, at most
-    0.008 rad), its draws from a generator seeded 0."""
+    """features/ -> matches/matches.json (verified pairs).
+
+    ``matching_type``: "bruteforce" (mutual-NN + Lowe ratio, batched over
+    pairs on the device; "flann" is the same exact path) or "lightglue"
+    (the official forward when ``lightglue_checkpoint`` or
+    ``$SPLAT_LIGHTGLUE_CKPT`` names a converted checkpoint, its matches
+    kept where both keypoints are valid; else the trainable tier).
+    Verification by 8-point RANSAC with a resolution-aware threshold (1.6
+    detection pixels of angle, at most 0.008 rad), its draws from a
+    generator seeded 0."""
     from splat_one_tpu_torch.sfm import matching as M
 
     mt = matching_type.replace("-", "").replace("_", "").lower()
-    if mt == "lightglue":
-        raise NotImplementedError(
-            "matching_type 'lightglue' is not ported yet: it comes with Slice G "
-            "(learned models)")
-    if mt not in ("bruteforce", "flann"):
+    if mt not in ("bruteforce", "flann", "lightglue"):
         raise ValueError(f"matching_type {matching_type!r}: expected "
                          "Brute-Force | FLANN | LIGHTGLUE")
     dev = resolve_device(device)
@@ -247,8 +297,12 @@ def match_features(
         descriptors=descs if vlad_neighbors > 0 else None,
         desc_valids=valids if vlad_neighbors > 0 else None,
         vlad_neighbors=vlad_neighbors, device=dev)
-    raw = M.match_pairs_batched(descs, valids, pairs, ratio=lowes_ratio,
-                                progress_callback=progress, device=dev)
+    if mt == "lightglue":
+        ckpt = lightglue_checkpoint or os.environ.get("SPLAT_LIGHTGLUE_CKPT")
+        raw = _lightglue_matches(feats, images, pairs, ckpt, progress, dev)
+    else:
+        raw = M.match_pairs_batched(descs, valids, pairs, ratio=lowes_ratio,
+                                    progress_callback=progress, device=dev)
     ang = [float(feats[n]["angular_res"]) for n in images if "angular_res" in feats[n]]
     thr_match = min(1.6 * float(np.median(ang)), 0.008) if ang else 0.008
     bearings = [feats[n]["bearings"] for n in images]
@@ -259,6 +313,34 @@ def match_features(
     with open(os.path.join(workdir, "matches", "matches.json"), "w") as f:
         json.dump(out, f)
     return len(out)
+
+
+def _lightglue_matches(feats, images, pairs, checkpoint, progress, dev):
+    """Putative matches {(i, j): [M, 2]} of each pair by LightGlue, pair by
+    pair on ``dev``."""
+    from splat_one_tpu_torch.models import lightglue_tpu as LG
+
+    params = LG.load_lightglue(checkpoint, desc_dim=feats[images[0]]["descriptors"].shape[1],
+                               device=dev)
+    faithful = LG.is_faithful(params)
+    raw = {}
+    for npair, (i, j) in enumerate(pairs):
+        fi, fj = feats[images[i]], feats[images[j]]
+        size_i = (int(fi["width"]), int(fi["height"]))
+        size_j = (int(fj["width"]), int(fj["height"]))
+        if faithful:
+            scores = LG.lightglue_forward_ckpt(params, fi["xys"], fj["xys"], fi["descriptors"],
+                                               fj["descriptors"], size_i, size_j)
+            idx_b, ok = LG.filter_matches_ckpt(scores)
+            ok = ok & fi["valid"] & fj["valid"][idx_b]
+        else:
+            idx_b, ok = LG.match_lightglue(params, fi["descriptors"], fj["descriptors"],
+                                           fi["xys"], fj["xys"], size_i, size_j,
+                                           fi["valid"], fj["valid"])
+        raw[(i, j)] = np.stack([np.flatnonzero(ok), idx_b[ok]], axis=1)
+        if progress:
+            progress(npair + 1, len(pairs))
+    return raw
 
 
 def _load_matches(workdir, images):

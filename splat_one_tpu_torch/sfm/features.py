@@ -158,6 +158,14 @@ def _hog_machinery(grad_x, grad_y, H, W):
     return orientation, descriptor
 
 
+def top_k(x: torch.Tensor, k: int):
+    """The ``k`` largest entries of 1-D ``x`` in ``jax.lax.top_k``'s order:
+    descending, ties by the lower index first (a stable sort; ``torch.topk``
+    promises no order among ties on the card). Returns (values, indices)."""
+    vals, idx = torch.sort(x, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
 def _top_keypoints(resp, cand, max_keypoints):
     """Top-K of the candidates' scores over the flattened [L, H, W]
     volume: (scores, valid, level, y, x)."""

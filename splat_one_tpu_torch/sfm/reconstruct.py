@@ -22,17 +22,8 @@ import torch
 
 from splat_one_tpu_torch.sfm import ba as ba_mod
 from splat_one_tpu_torch.sfm import geometry as geo
+from splat_one_tpu_torch.sfm.rigs import _rvec_to_R as _R_of
 from splat_one_tpu_torch.utils.device import resolve as resolve_device
-
-
-def _R_of(r: np.ndarray) -> np.ndarray:
-    """Angle-axis -> rotation matrix (host, float64)."""
-    th = np.linalg.norm(r)
-    if th < 1e-12:
-        return np.eye(3)
-    k = r / th
-    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
-    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)
 
 
 def _cross(a, b) -> np.ndarray:

@@ -15,8 +15,10 @@ against the JAX package, on the CPU.
   ``create_tracks`` and ``Parser`` read the port's ``matches.json`` and
   ``reconstruction.json`` (the same ``tracks.json`` bytes).
 - The mask stage: keypoints inside ``masks/<img>.png`` are dropped.
-- The SfM subcommands run on CUDA by default (they refuse here); the
-  options of later slices exit non-zero and name their slice.
+- The SfM subcommands run on CUDA by default (they refuse here); ORB,
+  AKAZE, SURF and ALIKED features and LightGlue matching run through the
+  CLI and write their files; the options of later slices exit non-zero
+  and name their slice.
 """
 
 import json
@@ -118,11 +120,15 @@ def test_metadata_stage_byte_equal(tmp_path):
     assert _files(wd_t) == _files(wd_j)
 
 
-def _aligned_errors(wd, c2ws, parser_cls):
+def _aligned_errors(wd, c2ws, parser_cls, names=None):
+    """Centre errors after the similarity alignment, as fractions of the
+    spread; ``names`` pairs a subset of views with ``c2ws`` (default: all
+    the ring's views)."""
     p = parser_cls(wd, normalize=False)
     est = {nm: p.camtoworlds[i][:3, 3] for i, nm in enumerate(p.image_names)}
+    names = names or [f"view_{i:02d}.png" for i in range(len(c2ws))]
     A = np.stack([c2ws[i][:3, 3] for i in range(len(c2ws))])
-    B = np.stack([est[f"view_{i:02d}.png"] for i in range(len(c2ws))])
+    B = np.stack([est[nm] for nm in names])
     muA, muB = A.mean(0), B.mean(0)
     U, s, Vt = np.linalg.svd((A - muA).T @ (B - muB))
     D = np.diag([1, 1, np.sign(np.linalg.det(U @ Vt))])
@@ -194,12 +200,22 @@ def test_device_default_and_later_slices(tmp_path, capsys):
             cli.main(["detect-features", wd])
         with pytest.raises(RuntimeError, match="CUDA"):
             pipeline.reconstruct(wd)
+    # the detectors and the matcher of Slices F2 / G now run and write
+    wd2 = str(tmp_path / "tex")
+    _write_ring(wd2, n=2, res=96)
+    assert cli.main(["extract-metadata", wd2]) == 0
+    feat = os.path.join(wd2, "features", "view_00.png.features.npz")
+    for ft in ("ORB", "AKAZE", "SURF", "ALIKED"):
+        if os.path.exists(feat):
+            os.remove(feat)
+        assert cli.main(["detect-features", wd2, "--feature-type", ft, "--max-keypoints",
+                         "128", "--device", "cpu"]) == 0, ft
+        with np.load(feat) as z:
+            assert z["descriptors"].shape[0] == 128 and z["bearings"].shape == (128, 3), ft
+    assert cli.main(["match-features", wd2, "--matching-type", "lightglue", "--device",
+                     "cpu"]) == 0
+    assert os.path.exists(os.path.join(wd2, "matches", "matches.json"))
     cases = [
-        (["detect-features", wd, "--feature-type", "ORB"], "Slice F2"),
-        (["detect-features", wd, "--feature-type", "AKAZE"], "Slice F2"),
-        (["detect-features", wd, "--feature-type", "SURF"], "Slice F2"),
-        (["detect-features", wd, "--feature-type", "ALIKED"], "Slice G"),
-        (["match-features", wd, "--matching-type", "lightglue"], "Slice G"),
         (["reconstruct", wd, "--live-viewer-port", "8765"], "Slice H"),
         (["run-all", wd, "--live-viewer-port", "8765"], "Slice H"),
         (["create-masks", wd], "Slice G"),

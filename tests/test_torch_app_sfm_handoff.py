@@ -1,4 +1,4 @@
-"""A workdir the JAX package began, continued by the port, on the CPU:
+"""Workdirs the JAX package began, continued by the port, on the CPU:
 the JAX package's ``extract_metadata`` and ``detect_features`` write
 ``exif/``, ``camera_models.json`` and ``features/*.features.npz`` for the
 12-view 256x256 textured-sphere ring; the port's ``match_features``,
@@ -46,4 +46,33 @@ def test_port_continues_jax_workdir(tmp_path):
     report = pipeline.reconstruct(wd, device="cpu")
     assert report["n_images"] == N_VIEWS, report
     err = _aligned_errors(wd, c2ws, Parser)
+    assert np.median(err) < 0.08 and err.max() < 0.15, err
+
+
+def test_port_continues_jax_akaze_workdir(tmp_path):
+    """The JAX package's AKAZE features (MSURF, 64-D) on the same ring, the
+    port's matching, tracks and reconstruction: the 64-D descriptors and
+    their bearings read as they are, JAX's ``create_tracks`` reproduces the
+    port's ``tracks.json`` from its ``matches.json``, and at least 7 views
+    register (the JAX package's own stages register 7 of the 12 on these
+    features: measured, not a bar it holds), their centres within the bars
+    above after aligning the registered ones."""
+    wd = str(tmp_path / "ring")
+    c2ws, Ks = _write_ring(wd)
+    jpipeline.extract_metadata(wd)
+    _set_true_focal(wd, Ks, RES, jcm.CameraModelManager)
+    jpipeline.detect_features(wd, max_keypoints=2048, feature_process_size=1024,
+                              feature_type="AKAZE")
+    with np.load(os.path.join(wd, "features", "view_00.png.features.npz")) as z:
+        assert z["descriptors"].shape == (2048, 64) and z["valid"].sum() > 200
+    assert pipeline.match_features(wd, device="cpu") > 15
+    assert pipeline.create_tracks(wd) > 300
+    tracks = open(os.path.join(wd, "tracks.json"), "rb").read()
+    jpipeline.create_tracks(wd)
+    assert open(os.path.join(wd, "tracks.json"), "rb").read() == tracks
+    report = pipeline.reconstruct(wd, device="cpu")
+    assert report["n_images"] >= 7, report
+    p = Parser(wd, normalize=False)
+    idx = [int(nm[5:7]) for nm in p.image_names]
+    err = _aligned_errors(wd, c2ws[idx], Parser, names=p.image_names)
     assert np.median(err) < 0.08 and err.max() < 0.15, err

@@ -114,10 +114,15 @@ def test_port_never_imports_jax():
             "splat_one_tpu_torch.sfm.ba", "splat_one_tpu_torch.sfm.reconstruct",
             "splat_one_tpu_torch.app.exif", "splat_one_tpu_torch.app.image_processing",
             "splat_one_tpu_torch.app.camera_models", "splat_one_tpu_torch.app.pipeline",
-            "splat_one_tpu_torch.app.cli"} <= set(mods)
+            "splat_one_tpu_torch.app.cli", "splat_one_tpu_torch.sfm.orb",
+            "splat_one_tpu_torch.sfm.akaze", "splat_one_tpu_torch.sfm.surf",
+            "splat_one_tpu_torch.sfm.rigs", "splat_one_tpu_torch.models.transformer",
+            "splat_one_tpu_torch.models.aliked_tpu",
+            "splat_one_tpu_torch.models.lightglue_tpu"} <= set(mods)
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r} + ['chip_smoke', 'raster_anatomy', 'reduce_anatomy']:\n"
+        f"for m in {mods!r} + ['chip_smoke', 'raster_anatomy', 'reduce_anatomy',\n"
+        "                     'lightglue_precision']:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'splat_one_tpu' or m.startswith('splat_one_tpu.')]\n"
@@ -125,7 +130,8 @@ def test_port_never_imports_jax():
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
     imp = re.compile(r"^\s*(import|from)\s+(jax|splat_one_tpu)(\s|\.|$)", re.M)
-    scripts = ("chip_smoke.py", "raster_anatomy.py", "reduce_anatomy.py")
+    scripts = ("chip_smoke.py", "raster_anatomy.py", "reduce_anatomy.py",
+               "lightglue_precision.py")
     for f in list(pkg.rglob("*.py")) + [REPO / f for f in scripts]:
         assert not imp.search(f.read_text()), f
 
