@@ -167,6 +167,39 @@ Phases (any failure exits non-zero and prints no result line):
      `rig_constrained_adjust` (tests/test_rigs.py's stereo rig) on the
      card against the CPU: cost within 1e-4 rel, cameras, points and the
      calibrated relative within 1e-4 of the extent;
+ 10. the Masks and Depth stages, LPIPS and term_thresh (run after phase 9;
+     no kernel of the script's table lies on (a)-(d)): TF32 off for the
+     matmuls and inside the convolution scope; (a) LPIPS (AlexNet, random
+     weights in the published layouts through scripts/convert_weights.py's
+     convert_lpips) on a 1280x720 pair of phase 8's scene, card vs CPU
+     within 1e-5 rel (the value and the five feature maps), ms a pair; the
+     other half ran in phase 5e (i): Trainer.eval with
+     $SPLAT_ONE_TPU_LPIPS_WEIGHTS set reports a finite LPIPS, stream_fwd
+     launched once a val view (phase 5b runs with the variable unset and
+     requires lpips None); (b) SAM 2.1 hiera_l (embed 144, heads 2, stages
+     (2, 6, 36, 4), global (23, 33, 43), windows (8, 4, 16, 8): the
+     reference's sam2.1_hiera_large) on random_checkpoint weights, a
+     1280x720 view at 1024x1024: the embedding, s0, s1, logits and IoU
+     (1, 2 and 4 clicks) card vs CPU within SAM_RTOL of their largest
+     entries, the masks equal except where |logit| is under that bar;
+     set_image and predict ms, peak memory; the compact tier the same way;
+     (c) Depth-Anything-V2 vitl (the published Large: width 1024, 24
+     layers, 16 heads, features 256, out_channels 256, 512, 1024, 1024;
+     random weights in DA-V2's layout through convert_depth) and the
+     compact vits at 518x518, card vs CPU within DEPTH_RTOL, ms an image,
+     peak memory; infer_equirectangular on a 2048x1024 panorama and
+     infer_fisheye on a 1280x960 fisheye with the network's share beside
+     the host's numpy; (d) the first 8 views of 8b's spiral at 256 px
+     through `cli create-masks` (with (b)'s checkpoint, then classical),
+     `estimate-depth` (default, --equirect, --camera-aware on a fisheye
+     camera), then `detect-features` with and without the classical
+     masks: no valid keypoint inside a masked-out region with them, some
+     without; files written and wall times; (e) stream_fwd and tile_fwd at
+     term_thresh 0, 1e-5 and 1e-3 on phase 3's scenes and the 1M scene,
+     every output bit their plain versions' (n_chunks with them), the
+     chunks walked falling as the threshold rises; in phase 7 the
+     stitched slabs at term_thresh 0 against the whole grid's stream_fwd
+     within 1e-5 on every pixel; phase 10's wall time (budget 150 s);
   6. the kernels line (JSON; the forward rows also carry spherical_ms and
      spherical_bound_ms; the seg_reduce row is the stream reduction path,
      with its kernel's and its tiled launch's figures beside), then the
@@ -1364,7 +1397,8 @@ def training_phase(dev, card, sc, max_err):
         torch.cuda.reset_peak_memory_stats()
         cuda_build.launch_counts.clear()
         t0 = time.perf_counter()
-        hist = trainer.train(log_every=1)
+        with lpips_weights(None):  # the eval's no-weights gate: lpips None
+            hist = trainer.train(log_every=1)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         tcounts = dict(cuda_build.launch_counts)
@@ -2100,6 +2134,7 @@ def train_stage_phase(dev, card):
             f"{steps_ms:.1f} ms a step (host clock, tb read every step); peak memory "
             f"{_peak_gib(dev):.2f} GiB | {card}")
         first_loss = losses[0]
+        eval_with_lpips(dev, card, trainer, tmp, WD_STEPS)
         del trainer
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -2320,6 +2355,39 @@ def never_stopped(alpha, ts=16):
     return m >= TERM_THRESH
 
 
+def stitched_without_stop(fields, n, W, H, caps, caps_full, cm):
+    """Phase 10e on phase 7's grid: each of the ``n`` slabs through
+    stream_fwd at term_thresh 0, stitched, against the whole grid's
+    stream_fwd at term_thresh 0 -> max abs err of (rgb, alpha, depth)."""
+    import dataclasses as dc
+
+    import torch
+    from splat_one_tpu_torch.ops import stream_isect as si
+    from splat_one_tpu_torch.ops import stream_raster as sr
+    from splat_one_tpu_torch.ops.projection import Projected
+    from splat_one_tpu_torch.render.rasterization import slab_cfg
+
+    N = fields.depths.shape[1]
+    proj = Projected(*(x.detach() for x in fields))
+    table = si.build_fields(proj)
+    with torch.no_grad():
+        cfg_s, cs_local, cs_global = slab_cfg(caps, W, H, 16, 1, N, n, cm)
+        cfg_s = dc.replace(cfg_s, term_thresh=0.0)
+        outs = []
+        for i in range(n):
+            isect = si.build_stream_intersections(proj, W, H, 16, caps, camera_model=cm,
+                                                  st_lo=i * cs_local, n_st_local=cs_local)
+            outs.append(sr.stream_fwd(cfg_s, isect.st_starts, si.pack_stream(table, isect, caps),
+                                      i * cs_local))
+        slabs = sr.stream_to_image(dc.replace(cfg_s, cs_local=0), torch.cat(outs)[:cs_global])
+        cfg_f = sr.StreamCfg.from_caps(caps_full, W, H, 16, 1, N, wrap_x=cm == "spherical",
+                                       term_thresh=0.0)
+        isect = si.build_stream_intersections(proj, W, H, 16, caps_full, camera_model=cm)
+        whole = sr.stream_to_image(cfg_f, sr.stream_fwd(cfg_f, isect.st_starts,
+                                                        si.pack_stream(table, isect, caps_full)))
+    return tuple(float((a - b).abs().max()) for a, b in zip(slabs, whole))
+
+
 def slab_phase(dev, card, sc, scene, first_loss, max_err):
     """Phase 7 (see the module docstring). ``sc`` is the serving scene,
     ``scene`` and ``first_loss`` phase 5b's. Returns (the launch counts of
@@ -2469,6 +2537,15 @@ def slab_phase(dev, card, sc, scene, first_loss, max_err):
             f"1e-4); the slabs' "
             f"summed gradients vs the unsharded step's: worst rel {worst:.2e} of each "
             f"gradient's max (bar {GRAD_RTOL})")
+
+        # (10e) with term_thresh 0 no tile stops early: the stitched slabs
+        # against the unsharded grid within 1e-5 on every pixel
+        e0 = stitched_without_stop(fields, n, W, H, caps, caps_full, cm)
+        log(f"  {cm}, term_thresh 0 (10e): stitched slabs vs the unsharded stream_fwd: rgb "
+            f"{e0[0]:.2e}, alpha {e0[1]:.2e} on all {W * H} pixels (bar 1e-5); depth "
+            f"{e0[2]:.2e} (bar 1e-4)")
+        require(max(e0[:2]) <= 1e-5 and e0[2] <= 1e-4,
+                f"{cm}: stitched slabs at term_thresh 0 differ by {e0}")
 
         # per-slab times: the body's forward, and with its backward to the fields
         leaf = torch.cat(outs).detach()[:cs_global].requires_grad_(True)
@@ -3657,6 +3734,533 @@ def features_phase(dev, card):
     return out
 
 
+# ---------------- phase 10: the Masks and Depth stages, LPIPS, term_thresh
+SAM_CONFIG = "hiera_l"  # (b): sam2.1_hiera_large, the reference's masks tab
+SAM_IMG = (1280, 720)  # (b): the image, W x H, resized to 1024 x 1024 by set_image
+DEPTH_RES = 518  # (c): DA-V2's input (37 x 37 patches)
+# (c): DA-V2 Large's DPT out_channels (DepthAnything/Depth-Anything-V2 run.py
+# model_configs); its width, depth, heads and features are CONFIGS["vitl"]
+DAV2_VITL_OUT = (256, 512, 1024, 1024)
+# (b), (c): card vs CPU, of each output's largest entry: the f32 bound of
+# the longest reduction on the path (hiera_l's MLP, 4 x 1152 = 4608 terms;
+# DA-V2 vitl's 4 x 1024 = 4096) times 2^-24, widened 4x for the depth of
+# the stacks (48 and 24 blocks) that carry it
+SAM_RTOL = 4 * 4608 * 2.0 ** -24
+DEPTH_RTOL = 4 * 4096 * 2.0 ** -24
+LPIPS_RTOL = 1e-5  # (a): card vs CPU
+MD_VIEWS = 8  # (d): the first views of 8b's spiral
+TERMS = (0.0, 1e-5, 1e-3)  # (e): the early-stop thresholds
+LPIPS_ENV = "SPLAT_ONE_TPU_LPIPS_WEIGHTS"
+
+
+def _empty_cache():
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _scripts_path():
+    """scripts/ of this checkout on sys.path (its weight converters import
+    numpy and torch only)."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+    if d not in sys.path:
+        sys.path.insert(0, d)
+
+
+@contextlib.contextmanager
+def lpips_weights(path):
+    """LPIPS' weight file for the block: ``$SPLAT_ONE_TPU_LPIPS_WEIGHTS``
+    (what subprocesses read) and ``models.lpips.DEFAULT_WEIGHTS`` (what
+    this process read at import) set to ``path``; ``None``: the variable
+    unset and the default a path with no file. Both restored after."""
+    from splat_one_tpu_torch.models import lpips as LP
+
+    old_env, old_default = os.environ.get(LPIPS_ENV), LP.DEFAULT_WEIGHTS
+    d = tempfile.mkdtemp(prefix="chip_smoke_nolpips_")
+    try:
+        if path is None:
+            os.environ.pop(LPIPS_ENV, None)
+            LP.DEFAULT_WEIGHTS = os.path.join(d, "none.npz")
+        else:
+            os.environ[LPIPS_ENV] = LP.DEFAULT_WEIGHTS = path
+        yield
+    finally:
+        LP.DEFAULT_WEIGHTS = old_default
+        if old_env is None:
+            os.environ.pop(LPIPS_ENV, None)
+        else:
+            os.environ[LPIPS_ENV] = old_env
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def lpips_weight_file(d, seed=0):
+    """Random weights of LPIPS' AlexNet (torchvision's feature convs) and
+    linear heads in their published torch layouts, through
+    scripts/convert_weights.py's convert_lpips -> the .npz path."""
+    import torch
+
+    _scripts_path()
+    from convert_weights import convert_lpips
+
+    rng = np.random.default_rng(seed)
+    shapes = [(64, 3, 11, 11), (192, 64, 5, 5), (384, 192, 3, 3), (256, 384, 3, 3),
+              (256, 256, 3, 3)]
+    anet, lins = {}, {}
+    for i, (j, s) in enumerate(zip((0, 3, 6, 8, 10), shapes)):
+        anet[f"features.{j}.weight"] = torch.tensor(rng.normal(scale=0.05, size=s)
+                                                    .astype(np.float32))
+        anet[f"features.{j}.bias"] = torch.tensor(rng.normal(scale=0.05, size=s[0])
+                                                  .astype(np.float32))
+        lins[f"lins.{i}.model.1.weight"] = torch.tensor(
+            rng.uniform(0.0, 0.2, size=(1, s[0], 1, 1)).astype(np.float32))
+    torch.save(anet, os.path.join(d, "alex.pth"))
+    torch.save(lins, os.path.join(d, "lin.pth"))
+    out = os.path.join(d, "lpips_alex.npz")
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert_lpips(os.path.join(d, "alex.pth"), os.path.join(d, "lin.pth"), out)
+    return out
+
+
+def eval_with_lpips(dev, card, trainer, tmp, step):
+    """Phase 10a's second half, on phase 5e's trainer: Trainer.eval with
+    an LPIPS weight file reports a finite LPIPS, its renders launched
+    through stream_fwd."""
+    import torch
+    from splat_one_tpu_torch.utils import cuda_build
+
+    path = lpips_weight_file(tmp)
+    with lpips_weights(path):
+        _sync()
+        n0 = cuda_build.launch_counts["stream_fwd"]
+        t0 = time.perf_counter()
+        stats = trainer.eval(step, stage="lpips")
+        wall = time.perf_counter() - t0
+        n = cuda_build.launch_counts["stream_fwd"] - n0
+    n_val = len(trainer.val_idx)
+    log(f"  (10a) Trainer.eval with ${LPIPS_ENV} set (random AlexNet + heads through "
+        f"convert_lpips): lpips {stats['lpips']}, psnr {stats['psnr']:.3f}; stream_fwd "
+        f"launched {n} times for {n_val} val renders; {wall:.2f} s | {card}")
+    require(stats["lpips"] is not None and np.isfinite(stats["lpips"]),
+            f"eval lpips {stats['lpips']}")
+    require(n == n_val, f"stream_fwd launched {n} times in an eval of {n_val} views")
+
+
+def lpips_card_vs_cpu(dev, card, tmp, imgs):
+    """Phase 10a: LPIPS on a 1280x720 pair, the card against the CPU."""
+    import torch
+    from splat_one_tpu_torch.models import lpips as LP
+
+    path = lpips_weight_file(tmp)
+    p_c, p_d = LP.load_weights(path, device="cpu"), LP.load_weights(path, device=dev)
+    x, y = (torch.as_tensor(np.repeat(im[None, ..., None], 3, -1).astype(np.float32) / 255.0)
+            for im in imgs)
+    t0 = time.perf_counter()
+    v_c = float(LP.lpips(p_c, x, y))
+    cpu_s = time.perf_counter() - t0
+    xd, yd = x.to(dev), y.to(dev)
+    v_d, ms, peak = _warm_ms(lambda: float(LP.lpips(p_d, xd, yd)), dev)
+    rel = abs(v_d - v_c) / abs(v_c)
+    f_errs = [_rel_err(a, b) for a, b in zip(LP._alex_features(p_d, xd * 2 - 1),
+                                             LP._alex_features(p_c, x * 2 - 1))]
+    log(f"phase 10a: LPIPS (AlexNet, random weights through convert_lpips) on a "
+        f"{x.shape[2]}x{x.shape[1]} pair of phase 8's views: card {v_d!r}, CPU {v_c!r} "
+        f"(rel {rel:.2e}, bar {LPIPS_RTOL}); the five feature maps of the first image card vs "
+        f"CPU {', '.join(f'{e:.2e}' for e in f_errs)} of their largest entries; card "
+        f"{ms:.2f} ms a pair (median of 3, host clock, synchronized), peak memory "
+        f"{peak:.3f} GiB; CPU {cpu_s:.2f} s | {card}")
+    require(np.isfinite(v_d) and rel <= LPIPS_RTOL and max(f_errs) <= LPIPS_RTOL,
+            f"LPIPS card {v_d} vs CPU {v_c}, features {f_errs}")
+    return dict(ms=ms, rel=rel)
+
+
+def _rel_err(a, b):
+    """max |a - b| over max |b| (a, b tensors or arrays; a on any device)."""
+    import torch
+
+    a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    b = b.detach().cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    require(a.shape == b.shape, f"shapes {a.shape} vs {b.shape}")
+    return float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-30))
+
+
+def sam2_card_vs_cpu(dev, card, tmp, rgb):
+    """Phase 10b: SAM 2.1 hiera_l (random_checkpoint) and the compact
+    tier, the card against the CPU on one image. Returns the .npz path."""
+    import torch
+    from splat_one_tpu_torch.models import sam2_hiera as SM
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, f"sam2_{SAM_CONFIG}.npz")
+    np.savez(path, **SM.random_checkpoint(SAM_CONFIG, seed=0))
+    setup_s = time.perf_counter() - t0
+    cfg = SM.CONFIGS[SAM_CONFIG]
+    H0, W0 = rgb.shape[:2]
+    log(f"phase 10b: SAM 2.1 {SAM_CONFIG} (embed {cfg['embed_dim']}, heads "
+        f"{cfg['num_heads']}, stages {cfg['stages']}, global {cfg['global_att']}, windows "
+        f"{cfg['window_spec']}), random_checkpoint weights ({os.path.getsize(path) / 2**30:.2f} "
+        f"GiB npz, {setup_s:.1f} s), a {W0}x{H0} view of phase 8's scene | {card}")
+    p_c = SM.SAM2Predictor(path, config=SAM_CONFIG, device="cpu")
+    p_d = SM.SAM2Predictor(path, config=SAM_CONFIG, device=dev)
+    log(f"  the predictors' input {p_d.img_size}x{p_d.img_size}")
+    t0 = time.perf_counter()
+    p_c.set_image(rgb)
+    cpu_s = time.perf_counter() - t0
+    _, set_ms, peak = _warm_ms(lambda: p_d.set_image(rgb), dev)
+    (e_c, (s0_c, s1_c)), (e_d, (s0_d, s1_d)) = p_c._emb, p_d._emb
+    errs = {"embed": _rel_err(e_d, e_c), "s0": _rel_err(s0_d, s0_c),
+            "s1": _rel_err(s1_d, s1_c)}
+    clicks = np.array([[W0 * 0.5, H0 * 0.5], [W0 * 0.1, H0 * 0.1], [W0 * 0.7, H0 * 0.4],
+                       [W0 * 0.3, H0 * 0.8]], np.float32)
+    labels = np.array([1, 0, 1, 0])
+    pred_ms = {}
+    for k in (1, 2, 4):
+        (m_d, iou_d, l_d), ms, _ = _warm_ms(lambda: p_d.predict(clicks[:k], labels[:k]), dev)
+        m_c, iou_c, l_c = p_c.predict(clicks[:k], labels[:k])
+        pred_ms[k] = ms
+        errs[f"logits {k}"] = _rel_err(l_d, l_c)
+        errs[f"iou {k}"] = _rel_err(iou_d, iou_c)
+        sure = np.abs(l_c) > SAM_RTOL * np.abs(l_c).max()
+        require(np.array_equal((l_d > 0)[sure], (l_c > 0)[sure]),
+                f"SAM2 mask signs differ beyond the bar ({k} clicks)")
+        n_diff = int((m_d != m_c).sum())
+        if np.array_equal(l_d > 0, l_c > 0):
+            require(n_diff == 0, f"SAM2 masks differ ({k} clicks)")
+        errs[f"mask px {k}"] = n_diff
+    log(f"  card vs CPU (max err / max |CPU|; bar {SAM_RTOL:.2e}): " + ", ".join(
+        f"{k} {v:.2e}" if isinstance(v, float) else f"{k} {v}" for k, v in errs.items()))
+    log(f"  set_image {set_ms:.1f} ms (median of 3, host clock, synchronized; PIL resize "
+        f"in), peak memory {peak:.2f} GiB; predict {', '.join(f'{k} click(s) {v:.2f} ms' for k, v in pred_ms.items())} "
+        f"(3 masks, PIL resize out); CPU set_image {cpu_s:.1f} s | {card}")
+    require(all(v <= SAM_RTOL for k, v in errs.items() if isinstance(v, float)),
+            f"SAM2 card vs CPU: {errs}")
+    # the compact tier, from the same seeded init on both
+    c_c, c_d = SM.HieraPredictor(device="cpu"), SM.HieraPredictor(device=dev)
+    c_c.set_image(rgb)
+    _, cset_ms, _ = _warm_ms(lambda: c_d.set_image(rgb), dev)
+    (cm_c, ci_c, cl_c) = c_c.predict(clicks[:2], labels[:2])
+    (cm_d, ci_d, cl_d), cpred_ms, _ = _warm_ms(lambda: c_d.predict(clicks[:2], labels[:2]), dev)
+    cerr = {"embed": _rel_err(c_d._emb, c_c._emb), "logits": _rel_err(cl_d, cl_c),
+            "iou": _rel_err(ci_d, ci_c)}
+    sure = np.abs(cl_c) > SAM_RTOL * np.abs(cl_c).max()
+    log(f"  compact tier (seeded init): card vs CPU {', '.join(f'{k} {v:.2e}' for k, v in cerr.items())} "
+        f"(bar {SAM_RTOL:.2e}), mask pixels differing {int((cm_d != cm_c).sum())}; set_image "
+        f"{cset_ms:.2f} ms, predict {cpred_ms:.2f} ms | {card}")
+    require(max(cerr.values()) <= SAM_RTOL
+            and np.array_equal((cl_d > 0)[sure], (cl_c > 0)[sure]),
+            f"compact SAM card vs CPU: {cerr}")
+    del p_c, p_d, c_c, c_d
+    _empty_cache()
+    return path, dict(set_ms=set_ms, predict_ms=pred_ms, peak=peak, errs=errs)
+
+
+def dav2_state_dict(gen, C, D, heads, F, out_ch, n):
+    """Random Depth-Anything-V2 weights with the published key names and
+    layouts (tests/test_weight_converters.py's schema at any width): the
+    weights N(0, 1 / fan_in), layer-norm scales 1, LayerScale 1, biases
+    N(0, 0.01^2), embeddings N(0, 0.02^2)."""
+    import torch
+
+    def w(*s):
+        fan_in = int(np.prod(s[1:])) if len(s) > 1 else 1
+        return torch.randn(*s, generator=gen) / np.sqrt(fan_in)
+
+    b = lambda c: torch.randn(c, generator=gen) * 0.01
+    sd = {"pretrained.patch_embed.proj.weight": w(C, 3, 14, 14),
+          "pretrained.patch_embed.proj.bias": b(C),
+          "pretrained.pos_embed": torch.randn(1, 1 + n * n, C, generator=gen) * 0.02,
+          "pretrained.cls_token": torch.randn(1, 1, C, generator=gen) * 0.02,
+          "pretrained.norm.weight": torch.ones(C), "pretrained.norm.bias": b(C)}
+    for d in range(D):
+        p = f"pretrained.blocks.{d}"
+        sd.update({f"{p}.norm1.weight": torch.ones(C), f"{p}.norm1.bias": b(C),
+                   f"{p}.attn.qkv.weight": w(3 * C, C), f"{p}.attn.qkv.bias": b(3 * C),
+                   f"{p}.attn.proj.weight": w(C, C), f"{p}.attn.proj.bias": b(C),
+                   f"{p}.norm2.weight": torch.ones(C), f"{p}.norm2.bias": b(C),
+                   f"{p}.mlp.fc1.weight": w(4 * C, C), f"{p}.mlp.fc1.bias": b(4 * C),
+                   f"{p}.mlp.fc2.weight": w(C, 4 * C), f"{p}.mlp.fc2.bias": b(C),
+                   f"{p}.ls1.gamma": torch.ones(C), f"{p}.ls2.gamma": torch.ones(C)})
+    for i, co in enumerate(out_ch):
+        sd[f"depth_head.projects.{i}.weight"] = w(co, C, 1, 1)
+        sd[f"depth_head.projects.{i}.bias"] = b(co)
+        sd[f"depth_head.scratch.layer{i + 1}_rn.weight"] = w(F, co, 3, 3)
+    for i, s in ((0, 4), (1, 2)):  # ConvTranspose2d [cin, cout, s, s]
+        sd[f"depth_head.resize_layers.{i}.weight"] = w(out_ch[i], out_ch[i], s, s)
+        sd[f"depth_head.resize_layers.{i}.bias"] = b(out_ch[i])
+    sd["depth_head.resize_layers.3.weight"] = w(out_ch[3], out_ch[3], 3, 3)
+    sd["depth_head.resize_layers.3.bias"] = b(out_ch[3])
+    for j in range(1, 5):
+        p = f"depth_head.scratch.refinenet{j}"
+        for u in (1, 2):
+            for c in (1, 2):
+                sd[f"{p}.resConfUnit{u}.conv{c}.weight"] = w(F, F, 3, 3)
+                sd[f"{p}.resConfUnit{u}.conv{c}.bias"] = b(F)
+        sd[f"{p}.out_conv.weight"] = w(F, F, 1, 1)
+        sd[f"{p}.out_conv.bias"] = b(F)
+    sd["depth_head.scratch.output_conv1.weight"] = w(F // 2, F, 3, 3)
+    sd["depth_head.scratch.output_conv1.bias"] = b(F // 2)
+    sd["depth_head.scratch.output_conv2.0.weight"] = w(32, F // 2, 3, 3)
+    sd["depth_head.scratch.output_conv2.0.bias"] = b(32)
+    sd["depth_head.scratch.output_conv2.2.weight"] = w(1, 32, 1, 1)
+    sd["depth_head.scratch.output_conv2.2.bias"] = torch.full((1,), 0.1)
+    return sd
+
+
+def _timed_network(model):
+    """Wrap ``model.infer_image`` so that its calls' seconds add up in the
+    returned list (the network's share of an infer_* call)."""
+    inner, spent = model.infer_image, [0.0]
+
+    def timed(bgr):
+        t0 = time.perf_counter()
+        out = inner(bgr)  # a host array: the card's work is done
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    model.infer_image = timed
+    return spent
+
+
+def depth_card_vs_cpu(dev, card, tmp, rgb):
+    """Phase 10c: DA-V2 vitl (faithful) and the compact vits, the card
+    against the CPU at 518x518; the panorama and fisheye paths timed."""
+    import torch
+    from PIL import Image
+    from splat_one_tpu_torch.models import depth_tpu as DT
+
+    _scripts_path()
+    from convert_weights import convert_depth
+
+    t0 = time.perf_counter()
+    cfg = DT.CONFIGS["vitl"]
+    C, D, heads, F_ = cfg["width"], cfg["depth"], cfg["heads"], cfg["features"]
+    out_ch = DAV2_VITL_OUT
+    n = DEPTH_RES // DT.PATCH
+    torch.save(dav2_state_dict(torch.Generator().manual_seed(0), C, D, heads, F_, out_ch, n),
+               os.path.join(tmp, "dav2_vitl.pth"))
+    npz = os.path.join(tmp, "dav2_vitl.npz")
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert_depth(os.path.join(tmp, "dav2_vitl.pth"), "vitl", npz)
+    os.remove(os.path.join(tmp, "dav2_vitl.pth"))
+    setup_s = time.perf_counter() - t0
+    log(f"phase 10c: Depth-Anything-V2 vitl (width {C}, {D} layers, {heads} heads, features "
+        f"{F_}, out_channels {list(out_ch)}; random weights in DA-V2's layout through "
+        f"convert_depth, {os.path.getsize(npz) / 2**30:.2f} GiB, {setup_s:.1f} s) and the "
+        f"compact vits, at {DEPTH_RES}x{DEPTH_RES} | {card}")
+    m_d = DT.DepthAnythingTPU("vitl", checkpoint=npz, device=dev)
+    require(m_d._faithful and m_d.has_weights, "vitl: the faithful forward")
+    with np.load(npz) as z:
+        p_c = DT.params_from_numpy({k: z[k] for k in z.files}, "cpu")
+    im = np.asarray(Image.fromarray(rgb).resize((DEPTH_RES, DEPTH_RES))).astype(np.float32) / 255
+    x = torch.as_tensor(((im - DT.IMAGENET_MEAN) / DT.IMAGENET_STD)[None])
+    t0 = time.perf_counter()
+    o_c = DT.depth_forward_faithful(p_c, x)
+    cpu_s = time.perf_counter() - t0
+    xd = x.to(dev)
+    with torch.no_grad():
+        o_d, net_ms, peak = _warm_ms(lambda: DT.depth_forward_faithful(m_d.params, xd), dev)
+    err = _rel_err(o_d, o_c)
+    bgr = np.ascontiguousarray(rgb[..., ::-1])
+    d_img, img_ms, _ = _warm_ms(lambda: m_d.infer_image(bgr), dev)
+    log(f"  vitl: card vs CPU {err:.2e} of max {float(o_c.abs().max()):.4g} (bar "
+        f"{DEPTH_RTOL:.2e}); the network {net_ms:.1f} ms an image, infer_image "
+        f"{img_ms:.1f} ms ({rgb.shape[1]}x{rgb.shape[0]} in and out; median of 3, host clock, "
+        f"synchronized), peak memory {peak:.2f} GiB; CPU {cpu_s:.1f} s | {card}")
+    require(err <= DEPTH_RTOL and bool(torch.isfinite(o_d).all())
+            and d_img.shape == rgb.shape[:2], f"vitl card vs CPU {err}")
+    # the compact vits (the CLI's default without a checkpoint), one seeded init
+    v_d = DT.DepthAnythingTPU("vits", device=dev)
+    v_c = DT.init_depth_model(torch.Generator().manual_seed(0), "vits")
+    xs = torch.as_tensor(im[None])
+    o_vc = DT.depth_forward(v_c, xs)
+    with torch.no_grad():
+        o_vd, v_ms, v_peak = _warm_ms(lambda: DT.depth_forward(v_d.params, xs.to(dev)), dev)
+    v_err = _rel_err(o_vd, o_vc)
+    log(f"  compact vits (seeded init): card vs CPU {v_err:.2e} of max "
+        f"{float(o_vc.abs().max()):.4g} (bar {DEPTH_RTOL:.2e}); {v_ms:.2f} ms an image, peak "
+        f"memory {v_peak:.2f} GiB | {card}")
+    require(v_err <= DEPTH_RTOL, f"compact vits card vs CPU {v_err}")
+    # the panorama and fisheye paths: the network's share beside the host's
+    out = {}
+    pano = np.asarray(Image.fromarray(bgr).resize((2048, 1024)))
+    fish = np.asarray(Image.fromarray(bgr).resize((1280, 960)))
+    K = np.array([[1280 / np.pi, 0, 640], [0, 1280 / np.pi, 480], [0, 0, 1]], np.float32)
+    for name, fn in (("infer_equirectangular 2048x1024", lambda: m_d.infer_equirectangular(pano)),
+                     ("infer_fisheye 1280x960", lambda: m_d.infer_fisheye(
+                         fish, K, dist=np.array([0.02, -0.01, 0.0, 0.0])))):
+        fn()  # warm
+        spent = _timed_network(m_d)
+        t0 = time.perf_counter()
+        d = fn()
+        wall = (time.perf_counter() - t0) * 1e3
+        del m_d.infer_image
+        require(np.isfinite(d).all(), f"{name}: non-finite depth")
+        out[name] = (wall, spent[0] * 1e3)
+        log(f"  {name}: {wall:.1f} ms (host clock), of it infer_image {spent[0] * 1e3:.1f} ms "
+            f"(the network and its PIL resizes), the host's numpy "
+            f"{wall - spent[0] * 1e3:.1f} ms | {card}")
+    del m_d, v_d, p_c
+    _empty_cache()
+    return dict(err=err, net_ms=net_ms, img_ms=img_ms, peak=peak, vits_err=v_err, vits_ms=v_ms,
+                paths=out)
+
+
+def masks_depth_stages(dev, card, tmp, sam_npz):
+    """Phase 10d: create-masks, estimate-depth and detect-features through
+    the CLI on the first MD_VIEWS views of 8b's spiral."""
+    from PIL import Image
+    from splat_one_tpu_torch.app import cli
+
+    W = SFM_RES
+    c2ws, Ks = spiral_cameras(SFM_VIEWS, W, W)
+    wd = os.path.join(tmp, "md")
+    sfm_workdir(dev, wd, c2ws[:MD_VIEWS], Ks[:MD_VIEWS], W, W)
+    names = sorted(os.listdir(os.path.join(wd, "images")))
+    with open(os.path.join(wd, "masks_clicks.json"), "w") as fh:
+        json.dump({nm: {"points": [[W / 2, W / 2], [W / 8, W / 8]], "labels": [1, 0]}
+                   for nm in names}, fh)
+    log(f"phase 10d: the Masks and Depth stages through the CLI on the first {MD_VIEWS} of "
+        f"8b's spiral views at {W}x{W}, then detect-features with the masks | {card}")
+    wd_f = os.path.join(tmp, "md_fisheye")
+    shutil.copytree(wd, wd_f)
+    with open(os.path.join(wd_f, "camera_models.json")) as fh:
+        models = json.load(fh)
+    for m in models.values():
+        m.update(projection_type="fisheye", k1=0.01, k2=0.0)
+    with open(os.path.join(wd_f, "camera_models.json"), "w") as fh:
+        json.dump(models, fh)
+    runs = [("create-masks --checkpoint (SAM 2.1 hiera_l)", ["create-masks", wd, "--checkpoint",
+                                                            sam_npz], "masks"),
+            ("create-masks (classical)", ["create-masks", wd], "masks"),
+            ("estimate-depth", ["estimate-depth", wd], "depth"),
+            ("estimate-depth --equirect", ["estimate-depth", wd, "--equirect"], "depth"),
+            ("estimate-depth --camera-aware (fisheye camera)",
+             ["estimate-depth", wd_f, "--camera-aware"], "depth")]
+    walls = {}
+    for label, argv, sub in runs:
+        d = os.path.join(argv[1], sub)
+        shutil.rmtree(d, ignore_errors=True)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(argv + ["--device", str(dev)])
+        walls[label] = time.perf_counter() - t0
+        files = sorted(os.listdir(d)) if os.path.isdir(d) else []
+        want = MD_VIEWS if sub == "masks" else 2 * MD_VIEWS
+        require(rc == 0 and len(files) == want, f"cli {label}: rc {rc}, {len(files)} files")
+        log(f"  {label}: {len(files)} files in {sub}/ ({files[0]} ..), {walls[label]:.2f} s")
+    for nm in names:
+        dep = np.load(os.path.join(wd_f, "depth", os.path.splitext(nm)[0] + "_depth.npy"))
+        require(dep.shape == (W, W) and np.isfinite(dep).all(), f"{nm}: fisheye depth")
+    # detect-features with the classical masks, and without them
+    kps = {}
+    for with_masks in (True, False):
+        if not with_masks:
+            shutil.move(os.path.join(wd, "masks"), os.path.join(tmp, "masks_aside"))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["detect-features", wd, "--max-keypoints", str(SFM_KP),
+                           "--feature-process-size", str(W), "--device", str(dev)])
+        walls[f"detect-features, masks {with_masks}"] = time.perf_counter() - t0
+        require(rc == 0, "detect-features")
+        inside = total = 0
+        for nm in names:
+            m = np.asarray(Image.open(os.path.join(tmp if not with_masks else wd,
+                                                   "masks_aside" if not with_masks else "masks",
+                                                   nm + ".png")))
+            with np.load(os.path.join(wd, "features", nm + ".features.npz")) as z:
+                xy = z["xys"][z["valid"]].astype(int)
+            inside += int((m[xy[:, 1], xy[:, 0]] <= 127).sum())
+            total += len(xy)
+        kps[with_masks] = (inside, total)
+    log(f"  detect-features: valid keypoints inside the masked-out regions {kps[True][0]} of "
+        f"{kps[True][1]} with the masks, {kps[False][0]} of {kps[False][1]} without; "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items() if k.startswith("detect"))
+        + f" | {card}")
+    require(kps[True][0] < kps[False][0] and kps[True][0] == 0,
+            f"the masks were not honoured: {kps}")
+    return walls
+
+
+def term_thresh_kernels(dev, card, scenes, sc):
+    """Phase 10e: stream_fwd and tile_fwd against their plain versions at
+    each of TERMS on phase 3's scenes and the 1M bench scene: every output
+    bit equal (n_chunks with them)."""
+    import dataclasses as dc
+
+    import torch
+    from splat_one_tpu_torch.ops import stream_raster as sr
+    from splat_one_tpu_torch.ops import tile_raster as tr
+
+    log(f"phase 10e: term_thresh {TERMS} through stream_fwd and tile_fwd against their plain "
+        f"versions | {card}")
+    rows = []
+    for name, s in list(scenes.items()) + [("1M bench 1280x720", sc)]:
+        cfg, st, packed, _ = stream_inputs(s, dev)
+        cfg_t, st_t, packed_t, _ = tile_inputs(s, project(s, dev))
+        walked = {}
+        for t in TERMS:
+            for kind, c, a, b, k_fn, p_fn, ch in (
+                    ("stream", dc.replace(cfg, term_thresh=t), st, packed, sr.stream_fwd,
+                     sr.stream_fwd_plain, (slice(None), slice(None), sr.CH_NCHUNKS, 0)),
+                    ("tile", dc.replace(cfg_t, term_thresh=t), st_t, packed_t, tr.tile_fwd,
+                     tr.tile_fwd_plain, (slice(None), tr.CH_NCHUNKS, 0))):
+                out_k = k_fn(c, a, b)
+                out_p = p_fn(c, a, b)
+                _sync()
+                require(bool(torch.equal(out_k, out_p)),
+                        f"{name}: {kind}_fwd at term_thresh {t} differs from its plain version")
+                walked[(kind, t)] = int(out_k[ch].sum())
+        for kind in ("stream", "tile"):
+            w = [walked[(kind, t)] for t in TERMS]
+            require(w[0] >= w[1] >= w[2], f"{name}: {kind} chunks walked {w} not monotone")
+        rows.append(name)
+        log(f"  {name}: every output bit equal at each threshold; chunks walked (summed over "
+            f"tiles) stream {', '.join(str(walked[('stream', t)]) for t in TERMS)}, tile "
+            f"{', '.join(str(walked[('tile', t)]) for t in TERMS)}")
+        del packed, packed_t
+    _empty_cache()
+    return rows
+
+
+def masks_depth_phase(dev, card, scenes, sc):
+    """Phase 10 (see the module docstring)."""
+    import torch
+    from splat_one_tpu_torch.sfm.features import _f32_conv
+
+    t_phase = time.perf_counter()
+    require(not torch.backends.cuda.matmul.allow_tf32, "matmul TF32 is on")
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    with _f32_conv():
+        require(not torch.backends.cudnn.allow_tf32, "_f32_conv left cuDNN's TF32 on")
+    torch.backends.cudnn.allow_tf32 = prev
+    W0, H0 = SAM_IMG
+    c2ws, Ks = spiral_cameras(SFM_VIEWS, W0, H0)
+    views = sphere_images(dev, c2ws[:2], Ks[:2], W0, H0)
+    rgb = np.repeat(views[0][..., None], 3, -1)
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_md_")
+    try:
+        walls = {}
+        for part, fn in (("a", lambda: lpips_card_vs_cpu(dev, card, tmp, views)),
+                         ("b", lambda: sam2_card_vs_cpu(dev, card, tmp, rgb)),
+                         ("c", lambda: depth_card_vs_cpu(dev, card, tmp, rgb))):
+            t0 = time.perf_counter()
+            out[part] = fn()
+            walls[part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["d"] = masks_depth_stages(dev, card, tmp, out["b"][0])
+        walls["d"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    out["e"] = term_thresh_kernels(dev, card, scenes, sc)
+    walls["e"] = time.perf_counter() - t0
+    log(f"  phase 10 wall {time.perf_counter() - t_phase:.1f} s (budget 150 s): "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items()) + f" | {card}")
+    return out
+
+
 def main():
     import torch
 
@@ -3905,6 +4509,7 @@ def main():
     torch.cuda.empty_cache()
     sfm_phase(dev, card)
     features_phase(dev, card)
+    masks_depth_phase(dev, card, scenes, sc)
     kernels = [dict(fwd_row, launches=rows["launches"].get("stream_fwd", 0),
                     max_abs_err=max_err["stream_fwd"])] + rows["kernels"] + [
         dict(tile_fwd_row, launches=rows["tiled_launches"].get("tile_fwd", 0),

@@ -255,21 +255,22 @@ def main():
             inv_w = sr._inv_width(c)
             if name == "stream_fwd":
                 o = torch.empty((c.cs, c.nt, sr.OUT_CH, c.npix), device=dev)
-                rc = fn(st.data_ptr(), pk.data_ptr(), o.data_ptr(), c.cs, c.sw, c.sh, c.tw,
-                        int(c.wrap_x), float(c.width), inv_w, stream)
+                rc = fn(st.data_ptr(), pk.data_ptr(), o.data_ptr(), c.cs, c.sw, c.sh, c.tw, 0,
+                        int(c.wrap_x), float(c.width), inv_w, float(c.term_thresh), stream)
             else:
                 o = torch.empty((c.ct, tr.OUT_CH, c.npix), device=dev)
-                rc = fn(st.data_ptr(), pk.data_ptr(), o.data_ptr(), c.ct, c.tw, c.tw * c.th,
-                        int(c.wrap_x), float(c.width), inv_w, stream)
+                rc = fn(st.data_ptr(), pk.data_ptr(), o.data_ptr(), c.ct, c.tw, c.tw * c.th, 0,
+                        int(c.wrap_x), float(c.width), inv_w, float(c.term_thresh), stream)
         elif name == "stream_bwd":
             o = torch.zeros((cfg.pad_cap, si.NF), device=dev)
             rc = fn(isect.st_starts.data_ptr(), isect.st_starts_al.data_ptr(),
                     packed.data_ptr(), out.data_ptr(), gout.data_ptr(), o.data_ptr(),
-                    cfg.cs, cfg.sw, cfg.sh, cfg.tw, 0, float(W), sr._inv_width(cfg), 0, stream)
+                    cfg.cs, cfg.sw, cfg.sh, cfg.tw, 0, 0, float(W), sr._inv_width(cfg), 0,
+                    stream)
         else:
             o = torch.zeros((cfg_t.align_cap, itx.NF), device=dev)
             rc = fn(st_t.data_ptr(), packed_t.data_ptr(), out_t.data_ptr(), gout_t.data_ptr(),
-                    o.data_ptr(), cfg_t.ct, cfg_t.tw, cfg_t.tw * cfg_t.th, 0, float(W),
+                    o.data_ptr(), cfg_t.ct, cfg_t.tw, cfg_t.tw * cfg_t.th, 0, 0, float(W),
                     sr._inv_width(cfg), stream)
         cs.require(rc == 0, f"{label}: launch failed ({rc})")
         return o

@@ -9,6 +9,8 @@
     python -m splat_one_tpu_torch.app.cli train <workdir> [--max-steps N] ...
     python -m splat_one_tpu_torch.app.cli train <workdir> --ckpt <npz> [--compression png]
     python -m splat_one_tpu_torch.app.cli viewer <workdir> [--port 8080]
+    python -m splat_one_tpu_torch.app.cli create-masks <workdir> [--clicks J] [--checkpoint N]
+    python -m splat_one_tpu_torch.app.cli estimate-depth <workdir> [--equirect] [--camera-aware]
 
 Every subcommand of the JAX package parses with its arguments and
 defaults; the ported ones also take ``--device`` (default ``cuda``). The
@@ -26,11 +28,8 @@ import time
 SFM_COMMANDS = ("extract-metadata", "detect-features", "match-features",
                 "create-tracks", "reconstruct", "run-all")
 # subcommand -> the ROADMAP slice that ports its stage
-NOT_PORTED = {
-    **dict.fromkeys(("create-masks", "estimate-depth"), "Slice G (learned models)"),
-    **dict.fromkeys(("resize", "restore-images", "mask-ui", "visualize-features",
-                     "visualize-matches"), "Slice H (the app shell)"),
-}
+NOT_PORTED = dict.fromkeys(("resize", "restore-images", "mask-ui", "visualize-features",
+                            "visualize-matches"), "Slice H (the app shell)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,6 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("workdir")
     sp.add_argument("--clicks", default=None)
     sp.add_argument("--checkpoint", default=None)
+    sp.add_argument("--device", default="cuda")
 
     sp = sub.add_parser("resize")
     sp.add_argument("workdir")
@@ -104,6 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--camera-aware", action="store_true",
                     help="route each image by its calibrated camera model "
                          "(fisheye -> ERP resample, spherical -> multi-crop)")
+    sp.add_argument("--device", default="cuda")
 
     sp = sub.add_parser("visualize-features")
     sp.add_argument("workdir")
@@ -176,6 +177,21 @@ def main(argv=None) -> int:
         except NotImplementedError as e:  # an option of a later slice
             print(f"splat-one-tpu-torch: {e}", file=sys.stderr)
             return 2
+    elif args.cmd == "create-masks":
+        from splat_one_tpu_torch.app import pipeline
+
+        n = pipeline.create_masks(args.workdir, clicks_path=args.clicks,
+                                  checkpoint=args.checkpoint, progress=_progress("masks"),
+                                  device=args.device)
+        print(f"wrote {n} masks")
+    elif args.cmd == "estimate-depth":
+        from splat_one_tpu_torch.app import pipeline
+
+        n = pipeline.estimate_depth(args.workdir, encoder=args.encoder,
+                                    checkpoint=args.checkpoint, equirect=args.equirect,
+                                    camera_aware=args.camera_aware,
+                                    progress=_progress("depth"), device=args.device)
+        print(f"wrote {n} depth maps to depth/")
     elif args.cmd == "train":
         from splat_one_tpu_torch.app import pipeline
         from splat_one_tpu_torch.train.config import Config

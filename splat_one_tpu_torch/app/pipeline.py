@@ -12,6 +12,9 @@ other began:
   matches/matches.json        verified pairs "a|b" -> [[fa, fb], ...]
   tracks.json                 [{image index: feature}, ...]
   reconstruction.json         OpenSfM-compatible cameras/shots/points
+  masks_clicks.json           {image: {"points": [[x, y], ...], "labels": [1, 0, ...]}}
+  masks/<img>.png             inverted masks (``create_masks``), read by detect_features
+  depth/<img>_depth.npy|png   relative depth maps (``estimate_depth``)
 
 The SfM stages take every detector of the JAX package (SIFT, HAHOG, ORB,
 AKAZE, SURF, ALIKED) and every matcher (brute force, FLANN, LightGlue);
@@ -442,3 +445,90 @@ def train_splats(workdir: str, cfg=None, max_images: Optional[int] = None, devic
     cfg.camera_model = scene.camera_model
     trainer = Trainer(cfg, scene, device=dev)
     return trainer, trainer.run()
+
+
+def create_masks(workdir: str, clicks_path: Optional[str] = None,
+                 checkpoint: Optional[str] = None, progress: ProgressFn = None,
+                 device="cuda") -> int:
+    """The Masks stage: for each image of ``masks_clicks.json`` (or
+    ``clicks_path``) the predictor of ``segmentation.build_predictor``
+    (SAM 2.1, the compact net or the classical region grower, by the
+    checkpoint) on its clicks, the best-scoring mask written inverted to
+    ``masks/<img>.png``. Returns the masks written (0 without a clicks
+    file). The learned predictors run on CUDA unless ``device="cpu"``;
+    the classical one is numpy on the host, and CUDA must be there all the
+    same where it was asked for."""
+    from PIL import Image
+
+    from splat_one_tpu_torch.models.segmentation import build_predictor, save_mask
+
+    dev = resolve_device(device)
+    clicks_path = clicks_path or os.path.join(workdir, "masks_clicks.json")
+    if not os.path.exists(clicks_path):
+        return 0
+    with open(clicks_path) as f:
+        clicks = json.load(f)
+    pred = build_predictor(checkpoint, device=dev)
+    n = 0
+    for i, (name, spec) in enumerate(sorted(clicks.items())):
+        img_path = os.path.join(workdir, "images", name)
+        if not os.path.exists(img_path):
+            continue
+        pred.set_image(np.asarray(Image.open(img_path).convert("RGB")))
+        masks, scores, _ = pred.predict(np.asarray(spec["points"], np.float32),
+                                        np.asarray(spec["labels"], np.int32))
+        best = int(np.argmax(np.asarray(scores)))
+        save_mask(masks[best], os.path.join(workdir, "masks", name + ".png"), invert=True)
+        n += 1
+        if progress:
+            progress(i + 1, len(clicks))
+    return n
+
+
+def estimate_depth(workdir: str, encoder: str = "vits", checkpoint: Optional[str] = None,
+                   equirect: bool = False, camera_aware: bool = False,
+                   progress: ProgressFn = None, device="cuda") -> int:
+    """The Depth stage: ``depth/<img>_depth.npy`` and a colourised PNG for
+    every image. ``equirect`` takes the multi-crop panorama path;
+    ``camera_aware`` routes each image by its camera model (fisheye
+    through the calibrated ERP resample, spherical through the multi-crop
+    stitch). Without a converted checkpoint the maps are the normalised
+    output of the seeded compact net. Returns the images processed; the
+    network runs on CUDA unless ``device="cpu"``."""
+    from PIL import Image
+
+    from splat_one_tpu_torch.models.depth_tpu import DepthAnythingTPU, save_depth_outputs
+
+    model = DepthAnythingTPU(encoder=encoder, checkpoint=checkpoint, device=device)
+    out_dir = os.path.join(workdir, "depth")
+    images = _images(workdir)
+    for i, name in enumerate(images):
+        bgr = np.asarray(Image.open(os.path.join(workdir, "images", name)).convert("RGB"))[
+            ..., ::-1]
+        cam = exif = None
+        if camera_aware:
+            exif = _load_exif(workdir, name)
+            cam = _camera_for(workdir, exif)
+        if cam is not None and cam["projection_type"] == "fisheye":
+            H0, W0 = bgr.shape[:2]
+            # the calibrated focal first, then EXIF's, then a wide default
+            f_norm = cam.get("focal")
+            if f_norm is None:
+                f_norm = exif.get("focal_ratio", 0.5)
+            f = f_norm * max(W0, H0)
+            # the principal point from the camera model (OpenSfM's
+            # normalised offsets from the image centre)
+            cx = W0 / 2 + cam.get("c_x", 0.0) * max(W0, H0)
+            cy = H0 / 2 + cam.get("c_y", 0.0) * max(W0, H0)
+            K = np.array([[f, 0, cx], [0, f, cy], [0, 0, 1]], np.float32)
+            dist = np.array([cam.get("k1", 0.0), cam.get("k2", 0.0), cam.get("k3", 0.0),
+                             cam.get("k4", 0.0)])
+            depth = model.infer_fisheye(bgr, K, dist=dist)
+        elif equirect or (cam is not None and cam["projection_type"] == "spherical"):
+            depth = model.infer_equirectangular(bgr)
+        else:
+            depth = model.infer_image(bgr)
+        save_depth_outputs(depth, out_dir, os.path.splitext(name)[0])
+        if progress:
+            progress(i + 1, len(images))
+    return len(images)

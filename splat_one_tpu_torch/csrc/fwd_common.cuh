@@ -53,7 +53,6 @@ constexpr int X = 0, Y = 1, CA = 2, CB = 3, CC = 4, OPAC = 5;
 // The JAX package's Python-double constants rounded once to f32.
 constexpr float ALPHA_MIN = static_cast<float>(1.0 / 255.0);
 constexpr float ALPHA_MAX = static_cast<float>(0.999);
-constexpr float TERM_THRESH = 1e-5f;  // TERM_THRESH of ops/stream_raster.py
 
 template <int PPT>
 struct Shape {
@@ -100,10 +99,11 @@ struct Pixels {
     hy = 0.5f * (r1 - r0);
   }
 
-  __device__ __forceinline__ bool alive() const {
-    bool a = false;
+  // some pixel has T >= term_thresh, or term_thresh <= 0 (never stop)
+  __device__ __forceinline__ bool alive(float term_thresh) const {
+    bool a = term_thresh <= 0.0f;
 #pragma unroll
-    for (int q = 0; q < PPT; ++q) a = a || (T[q] >= TERM_THRESH);
+    for (int q = 0; q < PPT; ++q) a = a || (T[q] >= term_thresh);
     return a;
   }
 
@@ -240,12 +240,13 @@ __device__ __forceinline__ void composite(const float4* rows, const unsigned cha
 // Walk the tile's `nchunks` chunks, chunk k being the G rows at
 // src + k * G rows, and return how many it composited: every chunk it
 // reached alive (COUNT_EMPTY) or only those whose mask is not empty.
-// pred(row, slot) picks the slots to walk (slot = k * G + g).
+// pred(row, slot) picks the slots to walk (slot = k * G + g); the tile
+// stops before a chunk once no pixel is alive(term_thresh).
 template <int PPT, int U, int STAGES, bool WRAP, bool COUNT_EMPTY, class Pred>
 __device__ __forceinline__ int walk_tile(Smem<Shape<PPT>::WARPS, U, STAGES>& sm,
                                          const float4* src, int nchunks,
                                          Pixels<PPT>& pix, Pred pred, float width,
-                                         float inv_width) {
+                                         float inv_width, float term_thresh) {
   static_assert(STAGES >= 2, "a chunk in flight while one is walked");
   constexpr int THREADS = Shape<PPT>::THREADS;
   const int tid = threadIdx.x;
@@ -268,7 +269,7 @@ __device__ __forceinline__ int walk_tile(Smem<Shape<PPT>::WARPS, U, STAGES>& sm,
     mask_rows<THREADS>(rows, sm.mask[k & 1], tid,
                        [&](const float* row, int g) { return pred(row, k * G + g); });
     // chunk k and its mask are in; chunk k - 1's buffer is free
-    const bool alive = __syncthreads_or(pix.alive());
+    const bool alive = __syncthreads_or(pix.alive(term_thresh));
     const int kn = k + STAGES - 1;
     if (kn < nchunks) {
       stage<THREADS>(sm.rows[kn % STAGES], src + static_cast<int64_t>(kn) * G * ROW4, tid);

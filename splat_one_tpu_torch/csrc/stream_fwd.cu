@@ -61,7 +61,7 @@ stream_fwd_kernel(const int* __restrict__ st_starts,
                   const float4* __restrict__ packed,  // [rows, NF / 4]
                   float* __restrict__ out,            // [CS, NT, OUT_CH, P]
                   int sw, int sh, int tw, int st_offset, float width,
-                  float inv_width) {
+                  float inv_width, float term_thresh) {
   __shared__ fwd::Smem<Shape::WARPS, UNROLL, STAGES> sm;
   const int tile = blockIdx.x;  // t * NT + j
   const int t = tile / NT;
@@ -105,7 +105,7 @@ stream_fwd_kernel(const int* __restrict__ st_starts,
   };
   const int nch = fwd::walk_tile<PPT, UNROLL, STAGES, WRAP, false>(
       sm, packed + static_cast<int64_t>(base0) * fwd::ROW4, nchunks, pix, gate, width,
-      inv_width);
+      inv_width, term_thresh);
   pix.store(out + static_cast<int64_t>(tile) * fwd::OUT_CH * fwd::P, nch);
 }
 
@@ -114,12 +114,12 @@ stream_fwd_kernel(const int* __restrict__ st_starts,
 extern "C" int stream_fwd(const int* st_starts, const float* packed,
                           float* out, int cs, int sw, int sh, int tw,
                           int st_offset, int wrap_x, float width,
-                          float inv_width, void* stream) {
+                          float inv_width, float term_thresh, void* stream) {
   if (cs <= 0) return 0;
   auto* kernel = wrap_x ? stream_fwd_kernel<true> : stream_fwd_kernel<false>;
   kernel<<<cs * NT, Shape::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       st_starts, reinterpret_cast<const float4*>(packed), out, sw, sh, tw, st_offset,
-      width, inv_width);
+      width, inv_width, term_thresh);
   return static_cast<int>(cudaGetLastError());
 }
 

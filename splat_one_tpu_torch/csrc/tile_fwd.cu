@@ -53,7 +53,7 @@ tile_fwd_kernel(const int* __restrict__ starts,
                 const float4* __restrict__ packed,  // [align_cap, NF / 4]
                 float* __restrict__ out,            // [CT, OUT_CH, P]
                 int tw, int tiles_per_cam, int tile_offset, float width,
-                float inv_width) {
+                float inv_width, float term_thresh) {
   __shared__ fwd::Smem<Shape::WARPS, UNROLL, STAGES> sm;
   const int t = blockIdx.x;
   const int start = starts[t];
@@ -69,7 +69,7 @@ tile_fwd_kernel(const int* __restrict__ starts,
   };
   const int nch = fwd::walk_tile<PPT, UNROLL, STAGES, WRAP, true>(
       sm, packed + static_cast<int64_t>(start) * fwd::ROW4, nchunks, pix, may_composite,
-      width, inv_width);
+      width, inv_width, term_thresh);
   pix.store(out + static_cast<int64_t>(t) * fwd::OUT_CH * fwd::P, nch);
 }
 
@@ -77,12 +77,13 @@ tile_fwd_kernel(const int* __restrict__ starts,
 
 extern "C" int tile_fwd(const int* starts, const float* packed, float* out,
                         int ct, int tw, int tiles_per_cam, int tile_offset,
-                        int wrap_x, float width, float inv_width, void* stream) {
+                        int wrap_x, float width, float inv_width, float term_thresh,
+                        void* stream) {
   if (ct <= 0) return 0;
   auto* kernel = wrap_x ? tile_fwd_kernel<true> : tile_fwd_kernel<false>;
   kernel<<<ct, Shape::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       starts, reinterpret_cast<const float4*>(packed), out, tw, tiles_per_cam, tile_offset,
-      width, inv_width);
+      width, inv_width, term_thresh);
   return static_cast<int>(cudaGetLastError());
 }
 

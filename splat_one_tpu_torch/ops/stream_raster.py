@@ -6,7 +6,8 @@ depth-sorted slots in chunks of G = 128 from the G-aligned base
 ``floor(start / G) * G``, gates each slot per 16 px tile by its
 precomputed ellipse extents (``COL_EXT_RX/RY``), and composites front to
 back with a running transmittance. A tile stops at chunk granularity once
-all its 256 pixels have T < ``TERM_THRESH``; the number of chunks it
+all its 256 pixels have T < ``StreamCfg.term_thresh`` (default
+``TERM_THRESH``; ``<= 0`` never stops); the number of chunks it
 processed is recorded for the backward. Output is [CS, 4, 8, 256]: rgb,
 alpha = 1 - T, accumulated depth, n_chunks and two zero channels.
 
@@ -44,7 +45,8 @@ from splat_one_tpu_torch.utils import cuda_build
 
 OUT_CH = 8  # r, g, b, alpha, depth, n_chunks, pad, pad
 CH_NCHUNKS = 5
-# A tile stops at the first chunk start where all its pixels have T below this.
+# The default early-stop threshold: a tile stops at the first chunk start
+# where all its pixels have T below it.
 TERM_THRESH = 1e-5
 # Supertiles composited per step of the plain version (bounds its memory).
 _PLAIN_BATCH = 512
@@ -63,6 +65,7 @@ class StreamCfg:
     exp_cap: int
     n_supertiles: int  # per camera (sw * sh)
     wrap_x: bool = False
+    term_thresh: float = TERM_THRESH  # <= 0: no tile stops early
     absgrad: bool = False  # reduce the ABSDX/ABSDY gradient columns
     ss: int = SS  # tiles per supertile side
     # cells of one supertile slab (multi-GPU); 0: the whole grid
@@ -108,13 +111,13 @@ class StreamCfg:
 
     @staticmethod
     def from_caps(caps: StreamCaps, width, height, tile_size, num_cameras,
-                  num_gaussians, wrap_x=False, absgrad=False):
+                  num_gaussians, wrap_x=False, term_thresh=TERM_THRESH, absgrad=False):
         return StreamCfg(
             width=width, height=height, tile_size=tile_size,
             num_cameras=num_cameras, num_gaussians=num_gaussians,
             chunk=caps.chunk, exp_cap=caps.exp_cap,
             n_supertiles=caps.n_supertiles // num_cameras,
-            wrap_x=wrap_x, absgrad=absgrad, ss=caps.ss,
+            wrap_x=wrap_x, term_thresh=term_thresh, absgrad=absgrad, ss=caps.ss,
         )
 
     @property
@@ -191,7 +194,7 @@ def stream_fwd_plain(cfg: StreamCfg, st_starts: torch.Tensor,
     slots = torch.arange(G, device=dev)
     kmax = int(nchunks.max()) if CS else 0
     for k in range(kmax):
-        alive = T.amax(-1) >= TERM_THRESH
+        alive = (T.amax(-1) >= cfg.term_thresh) | (cfg.term_thresh <= 0.0)
         active = torch.nonzero((k < nchunks) & alive.any(-1))[:, 0]
         if active.numel() == 0:
             break  # T only falls and nchunks only shrinks: nothing resumes
@@ -278,7 +281,7 @@ def stream_fwd(cfg: StreamCfg, st_starts: torch.Tensor,
         rc = lib.stream_fwd(
             st_starts.data_ptr(), packed.data_ptr(), out.data_ptr(),
             cfg.cs, cfg.sw, cfg.sh, cfg.tw, int(tile_offset), int(cfg.wrap_x),
-            float(cfg.width), _inv_width(cfg), stream)
+            float(cfg.width), _inv_width(cfg), float(cfg.term_thresh), stream)
     cuda_build.check(lib, rc, "stream_fwd")
     cuda_build.launch_counts["stream_fwd"] += 1
     return out

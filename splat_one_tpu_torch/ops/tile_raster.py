@@ -4,7 +4,8 @@ Counterpart of ``splat_one_tpu/ops/tile_raster.py`` (``impl="tiled"``).
 One program per (camera, 16 px tile) walks the tile's G-aligned slot
 range (``ops.intersect``) in chunks of G = 128 and composites front to
 back with a running transmittance. The tile stops at the first chunk
-start where all its 256 pixels have T < ``TERM_THRESH``; the number of
+start where all its 256 pixels have T < ``RasterCfg.term_thresh``
+(default ``TERM_THRESH``; ``<= 0`` never stops); the number of
 chunks it processed goes to channel ``CH_NCHUNKS`` of the output
 [CT, OUT_CH, 256]: rgb, alpha = 1 - T, accumulated depth, n_chunks and
 two zero channels. Tile membership comes from the builder, so the kernels
@@ -60,6 +61,7 @@ class RasterCfg:
     chunk: int  # G
     align_cap: int
     wrap_x: bool = False  # spherical azimuth seam
+    term_thresh: float = TERM_THRESH  # <= 0: no tile stops early
     ct_local: int = 0  # tiles of one slab; 0: the whole grid
 
     @property
@@ -127,7 +129,8 @@ def tile_fwd_plain(cfg: RasterCfg, starts: torch.Tensor,
     slots = torch.arange(G, device=dev)
     for k in range(int(nchunks.max()) if CT else 0):
         # a tile that stopped keeps T below the threshold: it never resumes
-        active = torch.nonzero((k < nchunks) & (T.amax(-1) >= TERM_THRESH))[:, 0]
+        alive = (T.amax(-1) >= cfg.term_thresh) | (cfg.term_thresh <= 0.0)
+        active = torch.nonzero((k < nchunks) & alive)[:, 0]
         if active.numel() == 0:
             break
         for sel in torch.split(active, _PLAIN_BATCH):
@@ -198,7 +201,8 @@ def tile_fwd(cfg: RasterCfg, starts: torch.Tensor, packed: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tile_fwd(starts.data_ptr(), packed.data_ptr(), out.data_ptr(),
                           cfg.ct, cfg.tw, cfg.tw * cfg.th, int(tile_offset),
-                          int(cfg.wrap_x), float(cfg.width), _inv_width(cfg), stream)
+                          int(cfg.wrap_x), float(cfg.width), _inv_width(cfg),
+                          float(cfg.term_thresh), stream)
     cuda_build.check(lib, rc, "tile_fwd")
     cuda_build.launch_counts["tile_fwd"] += 1
     return out

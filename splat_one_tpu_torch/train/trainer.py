@@ -77,6 +77,7 @@ from splat_one_tpu_torch.core import gaussians as G
 from splat_one_tpu_torch.core.sh import num_sh_bases
 from splat_one_tpu_torch.core.transforms import invert_se3
 from splat_one_tpu_torch.data import traj as traj_mod
+from splat_one_tpu_torch.models import lpips as lpips_mod
 from splat_one_tpu_torch.ops.intersect import IsectCaps
 from splat_one_tpu_torch.ops.ssim import ssim as ssim_fn
 from splat_one_tpu_torch.ops.stream_isect import StreamCaps, supertile_grid
@@ -694,14 +695,17 @@ class Trainer:
         self._build_steps()
 
     def eval(self, step: int, stage: str = "val") -> Dict[str, float]:
-        """PSNR and SSIM over the validation split, and with the bilateral
-        grid ``cc_psnr`` (PSNR after the per-channel quadratic
+        """PSNR, SSIM and LPIPS over the validation split, and with the
+        bilateral grid ``cc_psnr`` (PSNR after the per-channel quadratic
         ``color_correct`` fitted to the ground truth); stats JSON under
-        ``stats/``. LPIPS is None: its weights are not in the repository,
-        as the JAX Trainer reports without them. Under a mesh every rank
-        renders each view (the step's collectives); rank 0 writes."""
+        ``stats/``. LPIPS is gated on its weight file
+        (``models.lpips.DEFAULT_WEIGHTS``, loaded once per eval onto the
+        Trainer's device): without one it is None, never a random-weight
+        score. Under a mesh every rank renders each view (the step's
+        collectives); rank 0 writes."""
         cc = self.cfg.use_bilateral_grid
-        psnrs, ssims, cc_psnrs, times = [], [], [], []
+        lpips_params = lpips_mod.load_weights(device=self.device)
+        psnrs, ssims, lpipss, cc_psnrs, times = [], [], [], [], []
         for i in self.val_idx:
             b = self._batch(np.array([i]))
             t0 = time.time()
@@ -712,13 +716,15 @@ class Trainer:
             times.append(time.time() - t0)
             psnrs.append(float(L.psnr(rgb, b["image"])))
             ssims.append(float(ssim_fn(rgb, b["image"])))
+            if lpips_params is not None:
+                lpipss.append(float(lpips_mod.lpips(lpips_params, rgb, b["image"])))
             if cc:
                 cc_psnrs.append(float(L.psnr(BG.color_correct(rgb[0], b["image"][0]),
                                              b["image"][0])))
         stats = {
             "psnr": float(np.mean(psnrs)) if psnrs else 0.0,
             "ssim": float(np.mean(ssims)) if ssims else 0.0,
-            "lpips": None,
+            "lpips": float(np.mean(lpipss)) if lpipss else None,
             "ellipse_time": float(np.mean(times[1:])) if len(times) > 1 else 0.0,
             "num_GS": self._n_alive(),
         }

@@ -40,8 +40,8 @@ _F = ctypes.c_float
 # returns the cudaError_t of its launch as an int.
 SIGNATURES = {
     # st_starts, packed, out, cs, sw, sh, tw, st_offset, wrap_x, width,
-    # inv_width, stream
-    "stream_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    # inv_width, term_thresh, stream
+    "stream_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
     # st_starts, st_starts_al, packed, fwd_out, gout, pgrad, cs, sw, sh, tw,
     # st_offset, wrap_x, width, inv_width, absgrad, stream
     "stream_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
@@ -50,8 +50,8 @@ SIGNATURES = {
     # rows, cap, m0, cnt_n, tot, list, perm_u, perm, bounds, stream
     "keyed_perm": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     # starts, packed, out, ct, tw, tiles_per_cam, tile_offset, wrap_x, width,
-    # inv_width, stream
-    "tile_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    # inv_width, term_thresh, stream
+    "tile_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P],
     # starts, packed, fwd_out, gout, pgrad, ct, tw, tiles_per_cam, tile_offset,
     # wrap_x, width, inv_width, stream
     "tile_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],

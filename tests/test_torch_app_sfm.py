@@ -198,6 +198,9 @@ def test_device_default_and_later_slices(tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["detect-features", wd])
+        for argv in (["create-masks", wd], ["estimate-depth", wd]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                cli.main(argv)
         with pytest.raises(RuntimeError, match="CUDA"):
             pipeline.reconstruct(wd)
     # the detectors and the matcher of Slices F2 / G now run and write
@@ -215,10 +218,16 @@ def test_device_default_and_later_slices(tmp_path, capsys):
     assert cli.main(["match-features", wd2, "--matching-type", "lightglue", "--device",
                      "cpu"]) == 0
     assert os.path.exists(os.path.join(wd2, "matches", "matches.json"))
+    # the Masks stage of Slice G runs and writes masks/ (the classical
+    # predictor without a checkpoint)
+    with open(os.path.join(wd2, "masks_clicks.json"), "w") as f:
+        json.dump({"view_00.png": {"points": [[48, 48], [2, 2]], "labels": [1, 0]}}, f)
+    assert cli.main(["create-masks", wd2, "--device", "cpu"]) == 0
+    m = np.asarray(Image.open(os.path.join(wd2, "masks", "view_00.png.png")))
+    assert m.shape == (96, 96) and m[48, 48] == 0 and m[2, 2] == 255
     cases = [
         (["reconstruct", wd, "--live-viewer-port", "8765"], "Slice H"),
         (["run-all", wd, "--live-viewer-port", "8765"], "Slice H"),
-        (["create-masks", wd], "Slice G"),
         (["resize", wd, "--max-dim", "16"], "Slice H"),
     ]
     for argv, slice_name in cases:

@@ -5,14 +5,19 @@ the JAX package's ``extract_metadata`` and ``detect_features`` write
 ``create_tracks`` and ``reconstruct`` read them and register every view
 within JAX ``test_full_pipeline``'s bars (median < 0.08, max < 0.15 of
 the spread). The port's ``matches.json`` also feeds the JAX package's
-``create_tracks`` to the same ``tracks.json`` bytes.
+``create_tracks`` to the same ``tracks.json`` bytes. Masks the port's
+``create_masks`` writes are honoured by either package's
+``detect_features`` as JAX's own masks are: the same features.
 """
 
+import json
 import os
+import shutil
 
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from splat_one_tpu.app import camera_models as jcm
 from splat_one_tpu.app import pipeline as jpipeline
@@ -76,3 +81,45 @@ def test_port_continues_jax_akaze_workdir(tmp_path):
     idx = [int(nm[5:7]) for nm in p.image_names]
     err = _aligned_errors(wd, c2ws[idx], Parser, names=p.image_names)
     assert np.median(err) < 0.08 and err.max() < 0.15, err
+
+
+def test_port_masks_honoured_as_jax_masks(tmp_path):
+    """The port's ``create_masks`` (classical) on a 2-view ring, and the
+    JAX package's on a copy: the same mask bytes, and each package's
+    ``detect_features`` gives the same features on either workdir, with
+    no valid keypoint inside a masked-out region."""
+    base = str(tmp_path / "base")
+    _write_ring(base, n=2, res=96)
+    pipeline.extract_metadata(base)
+    with open(os.path.join(base, "masks_clicks.json"), "w") as f:
+        json.dump({"view_00.png": {"points": [[48, 48], [2, 2]], "labels": [1, 0]},
+                   "view_01.png": {"points": [[48, 48], [90, 5]], "labels": [1, 0]}}, f)
+    wd_j, wd_t = str(tmp_path / "j"), str(tmp_path / "t")
+    shutil.copytree(base, wd_j)
+    shutil.copytree(base, wd_t)
+    assert jpipeline.create_masks(wd_j) == 2
+    assert pipeline.create_masks(wd_t, device="cpu") == 2
+    kw = dict(max_keypoints=256, feature_process_size=96)
+    jpipeline.detect_features(wd_j, **kw)
+    jpipeline.detect_features(wd_t, **kw)
+    for name in ("view_00.png", "view_01.png"):
+        rel = os.path.join("masks", name + ".png")
+        assert open(os.path.join(wd_t, rel), "rb").read() == open(os.path.join(wd_j, rel),
+                                                                  "rb").read()
+        fj, ft = (np.load(os.path.join(w, "features", name + ".features.npz"))
+                  for w in (wd_j, wd_t))
+        np.testing.assert_array_equal(ft["valid"], fj["valid"])
+        np.testing.assert_array_equal(ft["xys"], fj["xys"])
+    # the port's detect_features drops the masked keypoints too: the
+    # unmasked run's keypoints that fall inside the masked-out region
+    pipeline.detect_features(base, device="cpu", **kw)
+    pipeline.detect_features(wd_t, device="cpu", **kw)
+    for name in ("view_00.png", "view_01.png"):
+        m = np.asarray(Image.open(os.path.join(wd_t, "masks", name + ".png")))
+        kept = []
+        for w in (base, wd_t):
+            with np.load(os.path.join(w, "features", name + ".features.npz")) as z:
+                kept.append(z["xys"][z["valid"]].astype(int))
+        inside = m[kept[0][:, 1], kept[0][:, 0]] > 127
+        assert (~inside).sum() > 5  # the mask had keypoints to drop
+        np.testing.assert_array_equal(kept[1], kept[0][inside])

@@ -191,10 +191,10 @@ ARGVS = [
 ]
 
 
-def test_cli_parses_as_jax(monkeypatch, capsys):
+def test_cli_parses_as_jax(monkeypatch, capsys, tmp_path):
     for argv in ARGVS:
         ns = vars(cli.build_parser().parse_args(argv))
-        if argv[0] in ("train", "viewer") + cli.SFM_COMMANDS:
+        if argv[0] in ("train", "viewer", "create-masks", "estimate-depth") + cli.SFM_COMMANDS:
             assert ns.pop("device") == "cuda"
         assert ns == _jax_namespace(argv, monkeypatch), argv
 
@@ -225,10 +225,17 @@ def test_cli_parses_as_jax(monkeypatch, capsys):
     capsys.readouterr()
     assert cli.main(["resize", "w", "--max-dim", "512"]) != 0
     assert "Slice H" in capsys.readouterr().err
+    # the Depth stage of Slice G runs in its own process and writes depth/
+    # (the seeded compact vits without a checkpoint)
+    wd = tmp_path / "depth_wd"
+    (wd / "images").mkdir(parents=True)
+    Image.fromarray(np.full((24, 32, 3), 128, np.uint8)).save(wd / "images" / "a.png")
     proc = subprocess.run([sys.executable, "-m", "splat_one_tpu_torch.app.cli",
-                           "estimate-depth", "w"], cwd=REPO, capture_output=True, text=True,
-                          timeout=120)
-    assert proc.returncode != 0 and "Slice G" in proc.stderr
+                           "estimate-depth", str(wd), "--device", "cpu"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert np.load(wd / "depth" / "a_depth.npy").shape == (24, 32)
+    assert (wd / "depth" / "a_depth.png").exists()
 
 
 def _free_port():

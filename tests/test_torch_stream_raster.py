@@ -169,6 +169,46 @@ def test_plain_forward_early_termination():
     assert torch.allclose(out[:, :, 3], torch.ones(1), atol=1e-5)
 
 
+TERMS = (0.0, 1e-5, 1e-3)
+
+
+def test_plain_forward_term_thresh_matches_jax():
+    """``StreamCfg.term_thresh`` at 0, 1e-5 and 1e-3 on the deep-stack
+    scene (supertile 2's tiles stop after 2 of its 6 chunks at 1e-5):
+    the plain version against the JAX kernel with the same threshold,
+    rgb, alpha and depth within 1e-5 rel, n_chunks exact. A larger
+    threshold stops tiles sooner; at 0 no tile stops early."""
+    import dataclasses
+
+    cfg_j, cfg_t, ij, packed, jsr = _jax_inputs(_deep_stack_scene(), "pinhole")
+    st_t = torch.as_tensor(np.array(ij.st_starts))
+    pk_t = torch.as_tensor(np.array(packed))
+    nch = {}
+    for term in TERMS:
+        cj = dataclasses.replace(cfg_j, term_thresh=term)
+        ct = dataclasses.replace(cfg_t, term_thresh=term)
+        out_j = np.asarray(jsr._fwd_call(cj, ij.st_starts, packed.T))
+        out_t = tsr.stream_fwd(ct, st_t, pk_t).numpy()
+        for ch in (slice(0, 3), slice(3, 4), slice(4, 5)):
+            rel = np.abs(out_t[:, :, ch] - out_j[:, :, ch]).max() / (
+                np.abs(out_j[:, :, ch]).max() + 1e-8)
+            assert rel < 1e-5, (term, ch, rel)
+        np.testing.assert_array_equal(out_t[:, :, tsr.CH_NCHUNKS], out_j[:, :, tsr.CH_NCHUNKS])
+        nch[term] = out_t[:, :, tsr.CH_NCHUNKS, 0]
+    assert tsr.StreamCfg.from_caps(tsi.StreamCaps.choose(8, 1, 1), 32, 32, 16, 1, 8
+                                   ).term_thresh == tsr.TERM_THRESH == 1e-5
+    assert (nch[0.0] >= nch[1e-5]).all() and (nch[1e-5] >= nch[1e-3]).all()
+    assert (nch[0.0] > nch[1e-5]).any() and (nch[1e-5] > nch[1e-3]).any()
+    # supertile 0's tiles end where their gated slots end at every threshold;
+    # supertile 2's saturate after 2 chunks (one after 1 at 1e-3), and at 0
+    # walk all 6
+    for term in TERMS:
+        assert nch[term][0].tolist() == [12.0, 1.0, 7.0, 0.0]
+    assert nch[0.0][2].tolist() == [6.0] * 4
+    assert nch[1e-5][2].tolist() == [2.0] * 4
+    assert nch[1e-3][2].tolist() == [2.0, 1.0, 2.0, 2.0]
+
+
 def test_deep_stack_scene_layout():
     """The deep-stack scene has what the backward kernels' gpu tests need:
     a supertile of 12 chunks whose tiles stop after 12, 1, 7 and 0 of them,

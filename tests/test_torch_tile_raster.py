@@ -120,6 +120,38 @@ def _forward_matches(case):
     return cfg_j, cfg_t, ij, packed, starts, packed_t, out_j, o_j, jtr
 
 
+def test_plain_forward_term_thresh_matches_jax():
+    """``RasterCfg.term_thresh`` at 0, 1e-5 and 1e-3 on the crowded
+    spherical scene (a tile of 19 chunks stops after 1 at 1e-5): the
+    plain version against the JAX kernel with the same threshold, rgb,
+    alpha and depth within 1e-5 rel, n_chunks exact; at 0 every tile
+    walks all its chunks."""
+    import dataclasses
+
+    from test_torch_stream_raster import TERMS, _crowded_scene
+
+    cfg_j, cfg_t, ij, packed, _, jtr = _inputs(_crowded_scene(), "spherical")
+    starts = torch.as_tensor(np.array(ij.tile_starts))
+    packed_t = torch.as_tensor(np.array(packed).T.copy())
+    nch = {}
+    for term in TERMS:
+        out_j = np.asarray(jtr._fwd_call(dataclasses.replace(cfg_j, term_thresh=term),
+                                         ij.tile_starts, packed))
+        out_t = ttr.tile_fwd(dataclasses.replace(cfg_t, term_thresh=term), starts,
+                             packed_t).numpy()
+        for ch in (slice(0, 3), slice(3, 4), slice(4, 5)):
+            rel = np.abs(out_t[:, ch] - out_j[:, ch]).max() / (np.abs(out_j[:, ch]).max() + 1e-8)
+            assert rel < 1e-5, (term, ch, rel)
+        np.testing.assert_array_equal(out_t[:, ttr.CH_NCHUNKS], out_j[:, ttr.CH_NCHUNKS])
+        nch[term] = out_t[:, ttr.CH_NCHUNKS, 0]
+    assert cfg_t.term_thresh == 1e-5
+    s = starts.long()
+    np.testing.assert_array_equal(nch[0.0], ((s[1:] - s[:-1]) // 128).numpy())
+    assert (nch[0.0] >= nch[1e-5]).all() and (nch[1e-5] >= nch[1e-3]).all()
+    assert (nch[0.0] > nch[1e-5]).any() and (nch[1e-5] > nch[1e-3]).any()
+    assert nch[1e-5][0] == 1 and nch[0.0][0] == 19
+
+
 def _backward_matches(fwd, same_rows=True):
     """The plain backward against the JAX kernel on the forward output of
     ``_forward_matches`` and one cotangent: every gradient column within

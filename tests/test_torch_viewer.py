@@ -118,7 +118,9 @@ def test_port_never_imports_jax():
             "splat_one_tpu_torch.sfm.akaze", "splat_one_tpu_torch.sfm.surf",
             "splat_one_tpu_torch.sfm.rigs", "splat_one_tpu_torch.models.transformer",
             "splat_one_tpu_torch.models.aliked_tpu",
-            "splat_one_tpu_torch.models.lightglue_tpu"} <= set(mods)
+            "splat_one_tpu_torch.models.lightglue_tpu", "splat_one_tpu_torch.models.lpips",
+            "splat_one_tpu_torch.models.segmentation", "splat_one_tpu_torch.models.sam2_hiera",
+            "splat_one_tpu_torch.models.depth_tpu"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke', 'raster_anatomy', 'reduce_anatomy',\n"
