@@ -200,6 +200,33 @@ Phases (any failure exits non-zero and prints no result line):
      chunks walked falling as the threshold rises; in phase 7 the
      stitched slabs at term_thresh 0 against the whole grid's stream_fwd
      within 1e-5 on every pixel; phase 10's wall time (budget 150 s);
+ 11. the training tiers and the app shell (run after phase 10; no kernel
+     of the script's table lies on (a), (c)-(f)): (a) the loops of
+     tests/test_models_trainability.py at their sizes on the card (ALIKED
+     compact, 8 x 32 x 32, desc_dim 32, Adam 3e-4, 150 steps: the loss
+     below a third of its start, the score's peak on a blob; LightGlue,
+     K 12, D 32, Adam 2e-3, 300 steps: the loss below its start, held-out
+     accuracy > 0.8), the gradients of both losses card vs CPU from the
+     same seeded weights within 1e-4 of each gradient's largest entry,
+     one forward + backward at full width (ALIKED desc_dim 128 on a
+     1024x768 image; the official LightGlue 256 wide, 9 layers, 2,048
+     keypoints a side): ms and peak memory; (b) utils.profiling:
+     device_timer on phase 4's pinhole request beside phase 4's median,
+     trace writing a trace file that names the stream_fwd kernel,
+     memory_stats' peak equal to max_memory_allocated, Trainer.eval's
+     mem the largest peak; (c) the mask UI over HTTP on localhost: SAM 2.1
+     on phase 10's random_checkpoint .npz on a 1024x1024 view, /predict
+     with 1 to 4 clicks (the first with set_image), /save, then `cli
+     create-masks` replaying masks_clicks.json into a byte-identical PNG;
+     the same with the classical predictor at 256 px; (d) `cli run-all
+     --live-viewer-port` on 12 ring views at 256 px with /state polled
+     from a thread: the snapshots, the time in LiveReconViewer.update,
+     the final /state with one camera per registered view; (e) `cli
+     resize` / `restore-images` on that workdir (the originals back, byte
+     for byte) and `visualize-features` / `visualize-matches`; (f) where
+     there is an ffmpeg binary, extract_frames on a clip it synthesises
+     (testsrc, 7 s, a frame every 2 s: 4 frames), else "not run: no
+     ffmpeg"; phase 11's wall time (budget 90 s);
   6. the kernels line (JSON; the forward rows also carry spherical_ms and
      spherical_bound_ms; the seg_reduce row is the stream reduction path,
      with its kernel's and its tiled launch's figures beside), then the
@@ -4222,8 +4249,9 @@ def term_thresh_kernels(dev, card, scenes, sc):
     return rows
 
 
-def masks_depth_phase(dev, card, scenes, sc):
-    """Phase 10 (see the module docstring)."""
+def masks_depth_phase(dev, card, scenes, sc, tmp):
+    """Phase 10 (see the module docstring), its files under ``tmp`` (the
+    caller removes it; phase 11 reads (b)'s checkpoint there)."""
     import torch
     from splat_one_tpu_torch.sfm.features import _f32_conv
 
@@ -4239,24 +4267,491 @@ def masks_depth_phase(dev, card, scenes, sc):
     views = sphere_images(dev, c2ws[:2], Ks[:2], W0, H0)
     rgb = np.repeat(views[0][..., None], 3, -1)
     out = {}
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_md_")
-    try:
-        walls = {}
-        for part, fn in (("a", lambda: lpips_card_vs_cpu(dev, card, tmp, views)),
-                         ("b", lambda: sam2_card_vs_cpu(dev, card, tmp, rgb)),
-                         ("c", lambda: depth_card_vs_cpu(dev, card, tmp, rgb))):
-            t0 = time.perf_counter()
-            out[part] = fn()
-            walls[part] = time.perf_counter() - t0
+    walls = {}
+    for part, fn in (("a", lambda: lpips_card_vs_cpu(dev, card, tmp, views)),
+                     ("b", lambda: sam2_card_vs_cpu(dev, card, tmp, rgb)),
+                     ("c", lambda: depth_card_vs_cpu(dev, card, tmp, rgb))):
         t0 = time.perf_counter()
-        out["d"] = masks_depth_stages(dev, card, tmp, out["b"][0])
-        walls["d"] = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        out[part] = fn()
+        walls[part] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["d"] = masks_depth_stages(dev, card, tmp, out["b"][0])
+    walls["d"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["e"] = term_thresh_kernels(dev, card, scenes, sc)
     walls["e"] = time.perf_counter() - t0
     log(f"  phase 10 wall {time.perf_counter() - t_phase:.1f} s (budget 150 s): "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items()) + f" | {card}")
+    return out
+
+
+# ------------------------------ phase 11: the training tiers and the app shell
+AL_BLOBS, AL_STEPS, AL_LR = 8, 150, 3e-4  # (a): tests/test_models_trainability.py's loops
+LG_K, LG_D, LG_PAIRS, LG_STEPS, LG_LR = 12, 32, 24, 300, 2e-3
+TRAIN_GRAD_RTOL = 1e-4  # (a): card vs CPU gradients, of each gradient's largest |entry|
+AL_FULL = (1024, 768)  # (a): ALIKED's full-width image, W x H (desc_dim 128)
+LG_FULL_KP = 2048  # (a): keypoints a side at LightGlue's full width (phase 9b's size)
+UI_RES = 1024  # (c): the mask UI's image for SAM 2.1 (its input size)
+UI_CLASSICAL_RES = 256  # (c): the classical predictor's image (its sweeps are host numpy)
+UI_CLICKS = 4  # (c): /predict requests, one more click each
+SHELL_VIEWS, SHELL_RES = 12, 256  # (d), (e): tests/test_torch_app_sfm.py's ring
+CLIP_S, CLIP_INTERVAL = 7, 2.0  # (f): the synthesised clip's seconds, the sampling interval
+
+
+def blob_batch(n=AL_BLOBS, h=32, w=32, n_blobs=3, seed=0):
+    """tests/test_models_trainability.py's ``_blob_image`` drawn ``n``
+    times from one numpy generator: (images [n, h, w, 1], targets
+    [n, h, w]), float32."""
+    rng = np.random.default_rng(seed)
+    imgs, tgts = [], []
+    for _ in range(n):
+        img = np.zeros((h, w), np.float32)
+        tgt = np.zeros((h, w), np.float32)
+        ys = rng.integers(4, h - 4, n_blobs)
+        xs = rng.integers(4, w - 4, n_blobs)
+        yy, xx = np.mgrid[0:h, 0:w]
+        for y, x in zip(ys, xs):
+            d2 = (yy - y) ** 2 + (xx - x) ** 2
+            img += np.exp(-d2 / 4.0)
+            tgt = np.maximum(tgt, np.exp(-d2 / 2.0))
+        img += rng.normal(0, 0.03, img.shape)
+        imgs.append(img.astype(np.float32))
+        tgts.append(tgt.astype(np.float32))
+    return np.stack(imgs)[..., None], np.stack(tgts)
+
+
+def lg_pair(seed, K=LG_K, D=LG_D):
+    """test_models_trainability.py's LightGlue pair: unit descriptors, B a
+    noisy permutation of A with A's positions; (da, db, xa, xb, label)."""
+    r = np.random.default_rng(seed)
+    da = r.normal(size=(K, D)).astype(np.float32)
+    da /= np.linalg.norm(da, axis=1, keepdims=True)
+    perm = r.permutation(K)
+    db = da[perm] + r.normal(0, 0.1, (K, D)).astype(np.float32)
+    db /= np.linalg.norm(db, axis=1, keepdims=True)
+    xa = r.uniform(0, 1, (K, 2)).astype(np.float32)
+    return da, db, xa, xa[perm], np.argsort(perm)
+
+
+def aliked_blob_loss(p, imgs, tgts, r=None):
+    """The JAX test's weighted blob loss (+ 0.1 mean(desc * r) with ``r``)."""
+    import torch
+    from splat_one_tpu_torch.models import aliked_tpu as AL
+
+    score, desc = AL.aliked_forward(p, imgs)
+    w = 1.0 + 30.0 * tgts
+    loss = torch.mean(w * (score - tgts) ** 2) / torch.mean(w)
+    return loss if r is None else loss + 0.1 * torch.mean(desc * r)
+
+
+def lg_perm_loss(p, da, db, xa, xb, label):
+    """The JAX test's loss: cross-entropy over the permutation + 0.1 x the
+    matchability term."""
+    import torch
+    from splat_one_tpu_torch.models import lightglue_tpu as LG
+
+    valid = torch.ones(da.shape[0], dtype=torch.bool, device=da.device)
+    sim, ma, mb = LG.lightglue_scores(p, da, db, xa, xb, valid, valid)
+    ce = -torch.mean(torch.log_softmax(sim, dim=1)[torch.arange(da.shape[0],
+                                                                 device=da.device), label])
+    return ce + 0.1 * -torch.mean(torch.log(ma + 1e-6) + torch.log(mb + 1e-6))
+
+
+def _train(loss_fn, params, lr, steps, batches, dev):
+    """Adam over ``steps``: (first loss, last loss, ms a step)."""
+    import torch
+
+    opt = torch.optim.Adam(params.values(), lr=lr)
+    with torch.no_grad():
+        l0 = loss_fn(params, *batches[0]).item()
+    _sync()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params, *batches[i % len(batches)])
+        loss.backward()
+        opt.step()
+    lf = loss.item()
+    return l0, lf, (time.perf_counter() - t0) * 1e3 / steps
+
+
+def _grads(loss_fn, params, batch):
+    import torch
+
+    names = list(params)
+    leaves = [params[n].detach().clone().requires_grad_() for n in names]
+    loss = loss_fn(dict(zip(names, leaves)), *batch)
+    return loss.item(), dict(zip(names, torch.autograd.grad(loss, leaves)))
+
+
+def _grad_rel(g_d, g_c):
+    """The worst parameter's max |card - CPU| / max |CPU|."""
+    return max(float((g_d[n].cpu() - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+               for n, g in g_c.items())
+
+
+def training_tiers(dev, card):
+    """Phase 11a: the trainability loops on the card, their gradients
+    against the CPU's, one full-width forward + backward of each model."""
+    import torch
+    from splat_one_tpu_torch.models import aliked_tpu as AL
+    from splat_one_tpu_torch.models import lightglue_tpu as LG
+
+    cpu = torch.device("cpu")
+    t = lambda a, d: torch.as_tensor(a, device=d)
+    imgs, tgts = blob_batch()
+    r = np.random.default_rng(5).normal(size=imgs.shape[:3] + (32,)).astype(np.float32)
+    log(f"phase 11a: the training tiers: ALIKED compact {AL_BLOBS} x 32 x 32, desc_dim 32, "
+        f"Adam {AL_LR}, {AL_STEPS} steps; LightGlue K {LG_K}, D {LG_D}, Adam {LG_LR}, "
+        f"{LG_STEPS} steps over {LG_PAIRS} pairs | {card}")
+    p = {n: v.requires_grad_() for n, v in AL.init_aliked(32, device=dev).items()}
+    ib, tb = t(imgs, dev), t(tgts, dev)
+    l0, lf, ms = _train(aliked_blob_loss, p, AL_LR, AL_STEPS, [(ib, tb)], dev)
+    with torch.no_grad():
+        score, _ = AL.aliked_forward(p, ib[:1])
+    peak_tgt = float(tb[0].flatten()[int(torch.argmax(score[0]))])
+    log(f"  ALIKED: loss {l0:.5f} -> {lf:.5f} (bar < l0 / 3), the score peak on target "
+        f"{peak_tgt:.3f} (bar > 0.3); {ms:.3f} ms a step | {card}")
+    require(lf < l0 / 3 and peak_tgt > 0.3, f"ALIKED did not learn the blobs: {l0} -> {lf}, "
+            f"peak {peak_tgt}")
+    pairs = [lg_pair(i) for i in range(LG_PAIRS)]
+    to_dev = lambda b, d: [t(x, d) for x in b]
+    q = {n: v.requires_grad_() for n, v in LG.init_lightglue(LG_D, device=dev).items()}
+    l0g, lfg, ms_g = _train(lg_perm_loss, q, LG_LR, LG_STEPS, [to_dev(b, dev) for b in pairs],
+                            dev)
+    da, db, xa, xb, label = to_dev(lg_pair(999), dev)
+    valid = torch.ones(LG_K, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        sim, _, _ = LG.lightglue_scores(q, da, db, xa, xb, valid, valid)
+    acc = float((torch.argmax(sim, dim=1) == label).float().mean())
+    log(f"  LightGlue: loss {l0g:.5f} -> {lfg:.5f} (bar < l0), held-out accuracy {acc:.4f} "
+        f"(bar > 0.8); {ms_g:.3f} ms a step | {card}")
+    require(lfg < l0g and acc > 0.8, f"LightGlue did not learn: {l0g} -> {lfg}, acc {acc}")
+    # the gradients on the card against the CPU's, from the same initial weights
+    pa = AL.init_aliked(32, device=cpu)
+    la_c, ga_c = _grads(aliked_blob_loss, pa, [t(imgs, cpu), t(tgts, cpu), t(r, cpu)])
+    la_d, ga_d = _grads(aliked_blob_loss, {n: v.to(dev) for n, v in pa.items()},
+                        [ib, tb, t(r, dev)])
+    pl = LG.init_lightglue(LG_D, device=cpu)
+    ll_c, gl_c = _grads(lg_perm_loss, pl, to_dev(pairs[0], cpu))
+    ll_d, gl_d = _grads(lg_perm_loss, {n: v.to(dev) for n, v in pl.items()},
+                        to_dev(pairs[0], dev))
+    e_a, e_l = _grad_rel(ga_d, ga_c), _grad_rel(gl_d, gl_c)
+    log(f"  gradients card vs CPU (worst parameter's max err / its max |CPU|; bar "
+        f"{TRAIN_GRAD_RTOL}): ALIKED blob + descriptor loss {e_a:.2e} over {len(ga_c)} "
+        f"parameters (loss {la_d:.6f} vs {la_c:.6f}), LightGlue {e_l:.2e} over {len(gl_c)} "
+        f"(loss {ll_d:.6f} vs {ll_c:.6f}) | {card}")
+    require(max(e_a, e_l) <= TRAIN_GRAD_RTOL, f"training gradients card vs CPU: {e_a}, {e_l}")
+    # one forward + backward at full width
+    W, H = AL_FULL
+    c2ws, Ks = spiral_cameras(1, W, H)
+    img = t(sphere_images(dev, c2ws, Ks, W, H)[0].astype(np.float32) / 255.0, dev)[None, ..., None]
+    pf = {n: v.requires_grad_() for n, v in AL.init_aliked(128, device=dev).items()}
+    rv = t(np.random.default_rng(6).normal(size=128).astype(np.float32), dev)
+
+    def aliked_step():
+        score, desc = AL.aliked_forward(pf, img)
+        loss = torch.mean(score) + torch.mean(desc @ rv)
+        return torch.autograd.grad(loss, list(pf.values()))
+
+    ga, ms_a, peak_a = _warm_ms(aliked_step, dev)
+    require(all(bool(torch.isfinite(g).all()) for g in ga), "ALIKED full-width gradients")
+    sd = {n: v.requires_grad_() for n, v in LG.init_lightglue_ckpt(device=dev).items()}
+    rng = np.random.default_rng(7)
+    kp = [rng.uniform(0, 1024, (LG_FULL_KP, 2)).astype(np.float32) for _ in range(2)]
+    de = [rng.normal(size=(LG_FULL_KP, 128)).astype(np.float32) for _ in range(2)]
+    de = [d / np.linalg.norm(d, axis=1, keepdims=True) for d in de]
+    n_layers = sum(k.endswith("self_attn.Wqkv.weight") for k in sd)
+
+    def lightglue_step():
+        s = LG.lightglue_forward_ckpt(sd, kp[0], kp[1], de[0], de[1], (1024, 1024),
+                                      (1024, 1024))
+        loss = -torch.mean(torch.diagonal(s)[:LG_FULL_KP])  # the identity assignment
+        # the earlier layers' assignment heads (early exit) are not on this path
+        return [g for g in torch.autograd.grad(loss, list(sd.values()), allow_unused=True)
+                if g is not None]
+
+    gl, ms_l, peak_l = _warm_ms(lightglue_step, dev)
+    require(all(bool(torch.isfinite(g).all()) for g in gl), "LightGlue full-width gradients")
+    log(f"  full width, one forward + backward (median of 3, host clock, synchronized): "
+        f"ALIKED compact desc_dim 128 on a {W}x{H} image {ms_a:.2f} ms, peak memory "
+        f"{peak_a:.2f} GiB; LightGlue official {sd['input_proj.weight'].shape[0]} wide, "
+        f"{n_layers} layers, {LG_FULL_KP} x {LG_FULL_KP} keypoints {ms_l:.2f} ms ({len(gl)} of "
+        f"{len(sd)} tensors on the path), peak memory "
+        f"{peak_l:.2f} GiB | {card}")
+    del pf, sd, ga, gl
+    _empty_cache()
+    return dict(aliked=(l0, lf, ms, peak_tgt), lightglue=(l0g, lfg, ms_g, acc),
+                grad_err=(e_a, e_l), full=(ms_a, peak_a, ms_l, peak_l))
+
+
+def profiling_part(dev, card, sc, request_ms, tmp):
+    """Phase 11b: utils/profiling on phase 4's request, and Trainer.eval's
+    ``mem``."""
+    import glob
+
+    import torch
+    from splat_one_tpu_torch.app.viewer import make_render_fn, params_from_numpy
+    from splat_one_tpu_torch.data.synthetic import make_synthetic_scene
+    from splat_one_tpu_torch.train.config import Config
+    from splat_one_tpu_torch.train.trainer import Trainer
+    from splat_one_tpu_torch.utils import cuda_build
+    from splat_one_tpu_torch.utils import profiling as PR
+
+    n = len(sc["means"])
+    W, H = sc["w"], sc["h"]
+    log(f"phase 11b: utils.profiling on phase 4's request ({n} gaussians, SH {SH_SERVE}, "
+        f"{W}x{H} pinhole) | {card}")
+    params, alive = params_from_numpy(serve_params(sc), np.ones(n, bool), dev)
+    fn = make_render_fn(params, alive, W, H, sh_degree=SH_SERVE, camera_model="pinhole",
+                        device=dev)
+    c2w, K = yaw_pose(0.0), sc["Ks"][0]
+    s = PR.device_timer(fn.render, c2w, K, "pinhole", iters=10)
+    log(f"  device_timer (CUDA events around 10 requests, after a warm one): {s * 1e3:.3f} ms "
+        f"a request; phase 4's median (host clock, synchronized) {request_ms:.3f} ms | {card}")
+    require(s > 0, "device_timer")
+    tdir = os.path.join(tmp, "trace")
+    with PR.trace(tdir):
+        fn.render(c2w, K, "pinhole")
+        _sync()
+    files = glob.glob(os.path.join(tdir, "*.pt.trace.json"))
+    require(len(files) == 1, f"trace files {files}")
+    with open(files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = {e.get("name", "") for e in events if str(e.get("cat", "")).lower() == "kernel"}
+    fwd = sorted(k for k in kernels if "stream_fwd" in k)
+    log(f"  trace: {os.path.basename(files[0])} ({os.path.getsize(files[0]) / 2**20:.1f} MiB, "
+        f"{len(events)} events, {len(kernels)} kernel names), the forward kernel as "
+        f"{fwd[0][:80] if fwd else None!r} | {card}")
+    require(bool(fwd), "the trace names no stream_fwd kernel")
+    _sync()
+    ms = PR.memory_stats()
+    want = torch.cuda.max_memory_allocated(0) / 2**30 if dev.type == "cuda" else None
+    log(f"  memory_stats: {ms}; torch.cuda.max_memory_allocated(0) / 2**30 = {want} | {card}")
+    require(ms.get("dev0_peak_gib") == want, "memory_stats' peak against max_memory_allocated")
+    del params, alive, fn
+    _empty_cache()
+    scene, _ = make_synthetic_scene(n_gaussians=400, n_cameras=6, width=64, height=64,
+                                    device=dev)
+    tr = Trainer(Config(max_steps=1, eval_steps=[], save_steps=[], capacity=512, sh_degree=1,
+                        camera_model="pinhole", result_dir=os.path.join(tmp, "eval")),
+                 scene, device=dev)
+    cuda_build.launch_counts.clear()
+    stats = tr.eval(0)
+    peaks = [v for k, v in PR.memory_stats().items() if k.endswith("peak_gib")]
+    log(f"  Trainer.eval on a 400-gaussian 64x64 scene: mem {stats.get('mem')} GiB (the largest "
+        f"peak of memory_stats now {max(peaks) if peaks else None}), psnr {stats['psnr']:.3f}, "
+        f"stream_fwd launches {cuda_build.launch_counts.get('stream_fwd', 0)} | {card}")
+    require(stats.get("mem") is not None and stats["mem"] == max(peaks),
+            f"Trainer.eval's mem {stats.get('mem')} against memory_stats {peaks}")
+    return dict(device_timer_ms=s * 1e3, mem=stats.get("mem"))
+
+
+def _http(url, spec=None, timeout=120):
+    data = None if spec is None else json.dumps(spec).encode()
+    with urllib.request.urlopen(urllib.request.Request(url, data=data), timeout=timeout) as r:
+        return r.read()
+
+
+def _mask_ui_requests(dev, wd, name, spec_seq, checkpoint=None):
+    """MaskUIServer over HTTP on localhost: /images, each /predict of
+    ``spec_seq`` timed, /save of the last; returns (ms of each predict,
+    the saved PNG's bytes, the server's build seconds)."""
+    from splat_one_tpu_torch.app.mask_ui import MaskUIServer
+
+    t0 = time.perf_counter()
+    srv = MaskUIServer(wd, checkpoint=checkpoint, port=_free_port(), device=dev)
+    build_s = time.perf_counter() - t0
+    srv.serve_background()
+    base = f"http://127.0.0.1:{srv.httpd.server_address[1]}"
+    try:
+        require(json.loads(_http(base + "/images")) == [name], "/images")
+        ms = []
+        for spec in spec_seq:
+            t0 = time.perf_counter()
+            png = _http(base + "/predict", spec)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            require(png[:4] == b"\x89PNG", "/predict's overlay")
+        require(json.loads(_http(base + "/save", spec_seq[-1])) == {}, "/save")
+    finally:
+        srv.httpd.shutdown()
+        srv.httpd.server_close()
+    with open(os.path.join(wd, "masks", name + ".png"), "rb") as fh:
+        return ms, fh.read(), build_s
+
+
+def mask_ui_part(dev, card, tmp, sam_npz):
+    """Phase 11c: the mask UI over HTTP with SAM 2.1 and the classical
+    predictor; ``cli create-masks`` replays the saved clicks."""
+    from PIL import Image
+    from splat_one_tpu_torch.app import cli
+
+    out = {}
+    for label, res, ckpt in (("SAM 2.1 hiera_l (phase 10's random_checkpoint)", UI_RES, sam_npz),
+                             ("classical (no checkpoint)", UI_CLASSICAL_RES, None)):
+        wd = os.path.join(tmp, f"ui_{res}")
+        os.makedirs(os.path.join(wd, "images"))
+        c2ws, Ks = spiral_cameras(SFM_VIEWS, res, res)
+        Image.fromarray(sphere_images(dev, c2ws[:1], Ks[:1], res, res)[0]).convert("RGB").save(
+            os.path.join(wd, "images", "view.png"))
+        pts = [[res * 0.5, res * 0.5], [res * 0.1, res * 0.1], [res * 0.7, res * 0.4],
+               [res * 0.3, res * 0.8]]
+        labels = [1, 0, 1, 0]
+        seq = [{"name": "view.png", "points": pts[:k], "labels": labels[:k]}
+               for k in range(1, UI_CLICKS + 1)]
+        ms, saved, build_s = _mask_ui_requests(dev, wd, "view.png", seq, ckpt)
+        m = np.asarray(Image.open(os.path.join(wd, "masks", "view.png.png")))
+        os.remove(os.path.join(wd, "masks", "view.png.png"))
+        argv = ["create-masks", wd] + (["--checkpoint", ckpt] if ckpt else [])
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(argv + ["--device", str(dev)])
+        replay_s = time.perf_counter() - t0
+        with open(os.path.join(wd, "masks", "view.png.png"), "rb") as fh:
+            same = fh.read() == saved
+        log(f"phase 11c: mask UI over HTTP, {label}, a {res}x{res} view: server built in "
+            f"{build_s:.2f} s; /predict {ms[0]:.1f} ms (1 click, set_image in), then "
+            f"{', '.join(f'{x:.1f}' for x in ms[1:])} ms ({len(ms[1:])} more clicks); /save "
+            f"wrote a {m.shape[1]}x{m.shape[0]} mask, {int((m == 0).sum())} px ignored; "
+            f"cli create-masks replays masks_clicks.json in {replay_s:.2f} s: rc {rc}, the PNG "
+            f"{'byte-identical' if same else 'DIFFERENT'} | {card}")
+        require(rc == 0 and same, f"{label}: create-masks did not replay the saved mask")
+        out[label] = dict(predict_ms=ms, replay_s=replay_s)
+    return out
+
+
+def live_viewer_and_shell(dev, card, tmp):
+    """Phase 11d: ``cli run-all --live-viewer-port`` on a ring with /state
+    polled; 11e: resize / restore-images and the previews on its workdir."""
+    import threading
+
+    from splat_one_tpu_torch.app import cli, recon_viewer
+    from splat_one_tpu_torch.data.synthetic import ring_cameras
+
+    W = SHELL_RES
+    c2ws, Ks = ring_cameras(SHELL_VIEWS, 2.0, -0.3, 60.0, W, W)
+    wd = os.path.join(tmp, "ring")
+    sfm_workdir(dev, wd, c2ws, Ks, W, W)
+    update = recon_viewer.LiveReconViewer.update
+    calls, viewers = [], []
+
+    def timed_update(self, poses, points):
+        t0 = time.perf_counter()
+        update(self, poses, points)
+        calls.append((time.perf_counter() - t0, len(poses), len(points)))
+        if self not in viewers:
+            viewers.append(self)
+
+    port = _free_port()
+    seen, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            try:
+                st = json.loads(_http(f"http://127.0.0.1:{port}/state", timeout=5))
+                key = (len(st["cams"]), len(st["points"]))
+                if not seen or seen[-1] != key:
+                    seen.append(key)
+            except (urllib.error.URLError, ConnectionError):
+                pass
+            stop.wait(0.05)
+
+    recon_viewer.LiveReconViewer.update = timed_update
+    th = threading.Thread(target=poll, daemon=True)
+    th.start()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["run-all", wd, "--live-viewer-port", str(port), "--device", str(dev)])
+    finally:
+        recon_viewer.LiveReconViewer.update = update
+        stop.set()
+        th.join(timeout=10)
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    report = json.loads(out[out.index("{"): out.rindex("}") + 1])
+    final = json.loads(_http(f"http://127.0.0.1:{port}/state"))
+    for v in viewers:
+        v.close()
+    err, n_reg = aligned_center_errors(wd, c2ws)
+    upd_s = sum(c[0] for c in calls)
+    log(f"phase 11d: cli run-all --live-viewer-port on {SHELL_VIEWS} ring views {W}x{W}: rc "
+        f"{rc}, {wall:.2f} s; {len(calls)} snapshots through LiveReconViewer.update "
+        f"({upd_s * 1e3:.1f} ms in update, the largest {max(calls, key=lambda c: c[2])[1:] if calls else None} "
+        f"cameras / points); the poller saw {len(seen)} distinct states, the last {seen[-1] if seen else None}; "
+        f"final /state {len(final['cams'])} cameras, {len(final['points'])} points; "
+        f"{n_reg} views registered, centre error median {float(np.median(err)):.4f}, max "
+        f"{float(err.max()):.4f} of the spread | {card}")
+    require(rc == 0 and not th.is_alive() and calls and seen, "the live viewer saw no snapshot")
+    require(len(final["cams"]) == report["n_images"] == n_reg,
+            f"final /state has {len(final['cams'])} cameras for {n_reg} registered views")
+    # (e) the shell stages on the same workdir
+    idir = os.path.join(wd, "images")
+    originals = {f: open(os.path.join(idir, f), "rb").read() for f in sorted(os.listdir(idir))}
+    walls = {}
+    with open(os.path.join(wd, "matches", "matches.json")) as fh:
+        pair = max(json.load(fh).items(), key=lambda kv: len(kv[1]))[0].split("|")
+    for label, argv in (("resize --max-dim", ["resize", wd, "--max-dim", str(W // 2)]),
+                        ("restore-images", ["restore-images", wd]),
+                        ("visualize-features", ["visualize-features", wd]),
+                        ("visualize-matches", ["visualize-matches", wd, *pair])):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(argv)
+        walls[label] = time.perf_counter() - t0
+        require(rc == 0, f"cli {label}")
+        if label.startswith("resize"):
+            from PIL import Image
+
+            size = Image.open(os.path.join(idir, sorted(originals)[0])).size
+            require(size == (W // 2, W // 2), f"resized to {size}")
+    restored = {f: open(os.path.join(idir, f), "rb").read() for f in sorted(os.listdir(idir))}
+    n_feat = len(os.listdir(os.path.join(wd, "previews", "features")))
+    match_png = os.path.join(wd, "previews", f"matches_{pair[0]}_{pair[1]}.png")
+    log(f"phase 11e: the shell stages on that workdir: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; restored images byte-identical: {restored == originals}; {n_feat} keypoint "
+        f"previews, the match preview of {pair[0]}|{pair[1]} {os.path.exists(match_png)} | {card}")
+    require(restored == originals, "restore-images did not give the originals back")
+    require(n_feat == SHELL_VIEWS and os.path.exists(match_png), "the previews")
+    return dict(wall=wall, snapshots=len(calls), update_s=upd_s, n_reg=n_reg, walls=walls)
+
+
+def video_part(dev, card, tmp):
+    """Phase 11f: extract_frames on a clip that ffmpeg synthesises, where
+    there is an ffmpeg binary."""
+    from splat_one_tpu_torch.data import video
+
+    if not video.ffmpeg_available():
+        log(f"phase 11f: video: not run: no ffmpeg | {card}")
+        return None
+    clip = os.path.join(tmp, "clip.mp4")
+    subprocess.run(["ffmpeg", "-y", "-f", "lavfi", "-i",
+                    f"testsrc=duration={CLIP_S}:size=320x240:rate=10", "-pix_fmt", "yuv420p",
+                    clip], check=True, capture_output=True, timeout=120)
+    t0 = time.perf_counter()
+    frames = video.extract_frames(clip, os.path.join(tmp, "frames"), CLIP_INTERVAL)
+    want = int(CLIP_S // CLIP_INTERVAL) + 1  # one at 0, 2, 4 and 6 s
+    log(f"phase 11f: extract_frames on a {CLIP_S} s testsrc clip every {CLIP_INTERVAL} s: "
+        f"{len(frames)} frames (expected {want}) in {time.perf_counter() - t0:.2f} s | {card}")
+    require(len(frames) == want, f"{len(frames)} frames, expected {want}")
+    return len(frames)
+
+
+def app_shell_phase(dev, card, sc, request_ms, tmp, sam_npz):
+    """Phase 11 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    out, walls = {}, {}
+    for part, fn in (("a", lambda: training_tiers(dev, card)),
+                     ("b", lambda: profiling_part(dev, card, sc, request_ms, tmp)),
+                     ("c", lambda: mask_ui_part(dev, card, tmp, sam_npz)),
+                     ("d, e", lambda: live_viewer_and_shell(dev, card, tmp)),
+                     ("f", lambda: video_part(dev, card, tmp))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        walls[part] = time.perf_counter() - t0
+    log(f"  phase 11 wall {time.perf_counter() - t_phase:.1f} s (budget 90 s): "
         + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items()) + f" | {card}")
     return out
 
@@ -4509,7 +5004,13 @@ def main():
     torch.cuda.empty_cache()
     sfm_phase(dev, card)
     features_phase(dev, card)
-    masks_depth_phase(dev, card, scenes, sc)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_md_")
+    try:
+        md = masks_depth_phase(dev, card, scenes, sc, tmp)
+        _empty_cache()
+        app_shell_phase(dev, card, sc, req_ms["pinhole front"], tmp, md["b"][0])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     kernels = [dict(fwd_row, launches=rows["launches"].get("stream_fwd", 0),
                     max_abs_err=max_err["stream_fwd"])] + rows["kernels"] + [
         dict(tile_fwd_row, launches=rows["tiled_launches"].get("tile_fwd", 0),

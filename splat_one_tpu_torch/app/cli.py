@@ -11,11 +11,17 @@
     python -m splat_one_tpu_torch.app.cli viewer <workdir> [--port 8080]
     python -m splat_one_tpu_torch.app.cli create-masks <workdir> [--clicks J] [--checkpoint N]
     python -m splat_one_tpu_torch.app.cli estimate-depth <workdir> [--equirect] [--camera-aware]
+    python -m splat_one_tpu_torch.app.cli mask-ui <workdir> [--port 8081] [--checkpoint N]
+    python -m splat_one_tpu_torch.app.cli resize <workdir> --max-dim 2048
+    python -m splat_one_tpu_torch.app.cli restore-images <workdir>
+    python -m splat_one_tpu_torch.app.cli visualize-features <workdir>
+    python -m splat_one_tpu_torch.app.cli visualize-matches <workdir> <image_a> <image_b>
 
 Every subcommand of the JAX package parses with its arguments and
-defaults; the ported ones also take ``--device`` (default ``cuda``). The
-subcommands whose stages are not ported yet exit non-zero and name the
-slice that ports them; so does the live reconstruction viewer's option.
+defaults (``reconstruct`` / ``run-all --live-viewer-port P`` serves the
+live reconstruction view). Those that run a network or a solver also
+take ``--device`` (default ``cuda``); ``resize``, ``restore-images`` and
+the previews are PIL on the host.
 """
 
 from __future__ import annotations
@@ -27,9 +33,6 @@ import time
 
 SFM_COMMANDS = ("extract-metadata", "detect-features", "match-features",
                 "create-tracks", "reconstruct", "run-all")
-# subcommand -> the ROADMAP slice that ports its stage
-NOT_PORTED = dict.fromkeys(("resize", "restore-images", "mask-ui", "visualize-features",
-                            "visualize-matches"), "Slice H (the app shell)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,6 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("workdir")
     sp.add_argument("--port", type=int, default=8081)
     sp.add_argument("--checkpoint", default=None)
+    sp.add_argument("--device", default="cuda")
 
     sp = sub.add_parser("estimate-depth")
     sp.add_argument("workdir")
@@ -151,8 +155,6 @@ def _sfm(args):
         n = pipeline.create_tracks(wd)
         print(f"built {n} tracks")
     else:  # reconstruct, run-all
-        if args.live_viewer_port:
-            raise NotImplementedError(pipeline.LIVE_VIEWER_LATER)
         if args.cmd == "run-all":
             pipeline.extract_metadata(wd, _progress("metadata"))
             pipeline.detect_features(wd, progress=_progress("features"), device=dev)
@@ -166,17 +168,9 @@ def _sfm(args):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.cmd in NOT_PORTED:
-        print(f"splat-one-tpu-torch: '{args.cmd}' is not ported yet: it comes with "
-              f"{NOT_PORTED[args.cmd]}", file=sys.stderr)
-        return 2
     t0 = time.time()
     if args.cmd in SFM_COMMANDS:
-        try:
-            _sfm(args)
-        except NotImplementedError as e:  # an option of a later slice
-            print(f"splat-one-tpu-torch: {e}", file=sys.stderr)
-            return 2
+        _sfm(args)
     elif args.cmd == "create-masks":
         from splat_one_tpu_torch.app import pipeline
 
@@ -208,6 +202,30 @@ def main(argv=None) -> int:
             print(f"final: {history[-1]}")
         elif isinstance(history, dict):
             print(f"eval: {history}")
+    elif args.cmd == "resize":
+        from splat_one_tpu_torch.app.image_processing import ImageProcessor
+
+        n = ImageProcessor(args.workdir).resize_images(args.max_dim)
+        print(f"resized {n} images (originals in images_org/)")
+    elif args.cmd == "restore-images":
+        from splat_one_tpu_torch.app.image_processing import ImageProcessor
+
+        n = ImageProcessor(args.workdir).restore_originals()
+        print(f"restored {n} originals")
+    elif args.cmd == "visualize-features":
+        from splat_one_tpu_torch.app import pipeline
+
+        n = pipeline.visualize_features(args.workdir)
+        print(f"wrote {n} keypoint previews to previews/features/")
+    elif args.cmd == "visualize-matches":
+        from splat_one_tpu_torch.app import pipeline
+
+        print(f"wrote {pipeline.visualize_matches(args.workdir, args.image_a, args.image_b)}")
+    elif args.cmd == "mask-ui":
+        from splat_one_tpu_torch.app.mask_ui import MaskUIServer
+
+        MaskUIServer(args.workdir, checkpoint=args.checkpoint, port=args.port,
+                     device=args.device).serve_forever()
     else:  # viewer
         from splat_one_tpu_torch.app import viewer
 

@@ -1,20 +1,23 @@
-"""Image listing + EXIF GPS/time injection: the port's own copy of
-``splat_one_tpu/app/image_processing.py`` without the resize with
-originals backup (``resize_images`` / ``restore_originals`` come with the
-``resize`` subcommands). ``list_images`` orders every stage;
-``apply_image_descriptions`` writes geotags from a Mapillary-style
-``image_descriptions.json`` into the workdir exif JSONs.
+"""Image listing, resizing with backup/restore, EXIF GPS/time injection:
+the port's own copy of ``splat_one_tpu/app/image_processing.py`` (PIL on
+the host; no tensor). ``list_images`` orders every stage;
+``resize_images`` moves the originals to ``images_org/`` (restorable by
+``restore_originals``); ``apply_image_descriptions`` writes geotags from a
+Mapillary-style ``image_descriptions.json`` into the workdir exif JSONs.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
+
 
 class ImageProcessor:
     def __init__(self, workdir: str):
         self.workdir = workdir
         self.images_dir = os.path.join(workdir, "images")
+        self.backup_dir = os.path.join(workdir, "images_org")
 
     def list_images(self):
         exts = (".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff")
@@ -24,6 +27,53 @@ class ImageProcessor:
             f for f in os.listdir(self.images_dir)
             if f.lower().endswith(exts)
         )
+
+    # ---- resize with originals backup (reference :92-150) ------------
+    def resize_images(self, max_dimension: int) -> int:
+        from PIL import Image
+
+        if not os.path.isdir(self.backup_dir):
+            os.makedirs(self.backup_dir, exist_ok=True)
+            for f in self.list_images():
+                shutil.copy2(
+                    os.path.join(self.images_dir, f),
+                    os.path.join(self.backup_dir, f),
+                )
+        n = 0
+        for f in self.list_images():
+            path = os.path.join(self.images_dir, f)
+            img = Image.open(path)
+            w, h = img.size
+            m = max(w, h)
+            if m <= max_dimension:
+                continue
+            s = max_dimension / m
+            img = img.resize(
+                (int(w * s), int(h * s)), Image.LANCZOS
+            )
+            # keep EXIF (focal/GPS/orientation feed the SfM stages) and
+            # avoid recompressing JPEGs at PIL's default quality 75
+            kw = {}
+            if "exif" in img.info:
+                kw["exif"] = img.info["exif"]
+            if path.lower().endswith((".jpg", ".jpeg")):
+                kw["quality"] = 95
+            img.save(path, **kw)
+            n += 1
+        return n
+
+    def restore_originals(self) -> int:
+        if not os.path.isdir(self.backup_dir):
+            return 0
+        n = 0
+        for f in os.listdir(self.backup_dir):
+            shutil.copy2(
+                os.path.join(self.backup_dir, f),
+                os.path.join(self.images_dir, f),
+            )
+            n += 1
+        shutil.rmtree(self.backup_dir)
+        return n
 
     # ---- mapillary-style geotag injection (reference :182-268) -------
     def apply_image_descriptions(

@@ -15,11 +15,13 @@ other began:
   masks_clicks.json           {image: {"points": [[x, y], ...], "labels": [1, 0, ...]}}
   masks/<img>.png             inverted masks (``create_masks``), read by detect_features
   depth/<img>_depth.npy|png   relative depth maps (``estimate_depth``)
+  previews/                   keypoint and match previews (``visualize_*``)
 
 The SfM stages take every detector of the JAX package (SIFT, HAHOG, ORB,
 AKAZE, SURF, ALIKED) and every matcher (brute force, FLANN, LightGlue);
-the live reconstruction viewer comes with Slice H. Every stage runs on
-CUDA unless ``device="cpu"`` is passed.
+``reconstruct`` can serve the live reconstruction viewer. Every stage
+with a network or a solver runs on CUDA unless ``device="cpu"`` is
+passed; the previews are PIL on the host.
 """
 
 from __future__ import annotations
@@ -36,8 +38,6 @@ from splat_one_tpu_torch.utils.device import resolve as resolve_device
 ProgressFn = Optional[Callable[[int, int], None]]
 
 FEATURE_TYPES = ("SIFT", "HAHOG", "ORB", "AKAZE", "SURF", "ALIKED")
-LIVE_VIEWER_LATER = ("live_viewer_port > 0 is not ported yet: the live reconstruction viewer "
-                     "(recon_viewer) comes with Slice H (the app shell)")
 
 
 def _exif_dir(workdir):
@@ -380,12 +380,12 @@ def reconstruct(workdir: str, progress: ProgressFn = None,
     reprojection-outlier threshold is 1.3 detection pixels of angle.
     ``bundle_use_gps`` converts EXIF GPS to a local frame (UTM, recentred)
     and puts centre priors in every global bundle. ``progress`` is accepted
-    for the CLI's sake; ``live_viewer_port`` > 0 (the live reconstruction
-    viewer) comes with Slice H."""
+    for the CLI's sake. ``live_viewer_port`` > 0 serves the live
+    point-cloud / camera view (``app.recon_viewer``) while reconstruction
+    runs; its daemon thread keeps serving after the stage returns, as in
+    the JAX package."""
     from splat_one_tpu_torch.sfm import reconstruct as RC
 
-    if live_viewer_port:
-        raise NotImplementedError(LIVE_VIEWER_LATER)
     dev = resolve_device(device)
     images = _images(workdir)
     with open(os.path.join(workdir, "tracks.json")) as f:
@@ -394,6 +394,13 @@ def reconstruct(workdir: str, progress: ProgressFn = None,
     bearings = [feats[n]["bearings"].astype(np.float32) for n in images]
     ang_res = [float(feats[n]["angular_res"]) for n in images if "angular_res" in feats[n]]
     counts = {k: len(m) for k, m in _load_matches(workdir, images).items()}
+    snapshot = None
+    if live_viewer_port:
+        from splat_one_tpu_torch.app.recon_viewer import LiveReconViewer
+
+        viewer = LiveReconViewer(port=live_viewer_port)
+        print(f"live reconstruction view: {viewer.serve_background()}")
+        snapshot = viewer.update
     gps_positions = None
     cfg = RC.ReconstructConfig()
     if ang_res:
@@ -408,7 +415,7 @@ def reconstruct(workdir: str, progress: ProgressFn = None,
             origin = np.mean(list(fixes.values()), axis=0)
             gps_positions = {i: (p - origin).astype(np.float32) for i, p in fixes.items()}
             cfg = RC.ReconstructConfig(bundle_use_gps=True, gps_sd_m=gps_sd_m)
-    rec = RC.incremental_reconstruct(bearings, tracks, counts, cfg=cfg,
+    rec = RC.incremental_reconstruct(bearings, tracks, counts, cfg=cfg, snapshot=snapshot,
                                      gps_positions=gps_positions, device=dev)
 
     cameras, shots = {}, {}
@@ -483,6 +490,73 @@ def create_masks(workdir: str, clicks_path: Optional[str] = None,
         if progress:
             progress(i + 1, len(clicks))
     return n
+
+
+def visualize_features(workdir: str, out_dir: Optional[str] = None) -> int:
+    """Keypoint-overlay PNGs per image (the reference's feature preview,
+    app/feature_extractor.py:440-459) -> ``previews/features/<img>.png``;
+    returns the previews written."""
+    from PIL import Image, ImageDraw
+
+    proc_dir = out_dir or os.path.join(workdir, "previews", "features")
+    os.makedirs(proc_dir, exist_ok=True)
+    n = 0
+    for name in _images(workdir):
+        fpath = os.path.join(workdir, "features", name + ".features.npz")
+        if not os.path.exists(fpath):
+            continue
+        with np.load(fpath) as z:
+            xys, valid, fw, fh = z["xys"], z["valid"], float(z["width"]), float(z["height"])
+        img = Image.open(os.path.join(workdir, "images", name)).convert("RGB")
+        sx = img.width / fw
+        sy = img.height / fh
+        draw = ImageDraw.Draw(img)
+        for (x, y), ok in zip(xys, valid):
+            if not ok:
+                continue
+            x, y = x * sx, y * sy
+            draw.ellipse([x - 2, y - 2, x + 2, y + 2], outline=(0, 255, 0))
+        img.save(os.path.join(proc_dir, name + ".png"))
+        n += 1
+    return n
+
+
+def visualize_matches(workdir: str, image_a: str, image_b: str,
+                      out_path: Optional[str] = None) -> str:
+    """Side-by-side match preview for one pair (the reference's,
+    app/feature_matching.py:395-431), the first 500 stored matches; returns
+    the PNG's path (``previews/matches_<a>_<b>.png`` by default)."""
+    from PIL import Image, ImageDraw
+
+    with open(os.path.join(workdir, "matches", "matches.json")) as f:
+        raw = json.load(f)
+    key = f"{image_a}|{image_b}"
+    key_r = f"{image_b}|{image_a}"
+    if key in raw:
+        pairs = np.asarray(raw[key], np.int64)
+    elif key_r in raw:
+        pairs = np.asarray(raw[key_r], np.int64)[:, ::-1]
+    else:
+        raise KeyError(f"no matches stored for pair {image_a}, {image_b}")
+    za, zb = (_load_features(workdir, [n])[n] for n in (image_a, image_b))
+    ia = Image.open(os.path.join(workdir, "images", image_a)).convert("RGB")
+    ib = Image.open(os.path.join(workdir, "images", image_b)).convert("RGB")
+    h = max(ia.height, ib.height)
+    canvas = Image.new("RGB", (ia.width + ib.width, h))
+    canvas.paste(ia, (0, 0))
+    canvas.paste(ib, (ia.width, 0))
+    draw = ImageDraw.Draw(canvas)
+    sa = (ia.width / float(za["width"]), ia.height / float(za["height"]))
+    sb = (ib.width / float(zb["width"]), ib.height / float(zb["height"]))
+    for fa, fb in pairs[:500]:
+        xa, ya = za["xys"][fa] * sa
+        xb, yb = zb["xys"][fb] * sb
+        draw.line([xa, ya, ia.width + xb, yb], fill=(0, 200, 0), width=1)
+    out_path = out_path or os.path.join(
+        workdir, "previews", f"matches_{image_a}_{image_b}.png")
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    canvas.save(out_path)
+    return out_path
 
 
 def estimate_depth(workdir: str, encoder: str = "vits", checkpoint: Optional[str] = None,

@@ -93,6 +93,7 @@ from splat_one_tpu_torch.train import strategy as S
 from splat_one_tpu_torch.train.config import Config
 from splat_one_tpu_torch.train.strategy import MCMCStrategyCfg
 from splat_one_tpu_torch.utils.device import resolve as resolve_device
+from splat_one_tpu_torch.utils.profiling import memory_stats
 from splat_one_tpu_torch.utils.tensorboard import SummaryWriter
 
 
@@ -730,8 +731,10 @@ class Trainer:
         }
         if cc:
             stats["cc_psnr"] = float(np.mean(cc_psnrs)) if cc_psnrs else 0.0
-        if self.device.type == "cuda":
-            stats["mem"] = torch.cuda.max_memory_allocated(self.device) / 2**30
+        peaks = [v for k, v in memory_stats().items() if k.endswith("peak_gib")]
+        if peaks:
+            # the reference reports cuda max_memory_allocated in GiB (:835)
+            stats["mem"] = max(peaks)
         if self._primary:
             with open(os.path.join(self.result_dir, "stats",
                                    f"{stage}_step{step:04d}.json"), "w") as f:

@@ -17,13 +17,25 @@ against the JAX package, on the CPU.
 - The mask stage: keypoints inside ``masks/<img>.png`` are dropped.
 - The SfM subcommands run on CUDA by default (they refuse here); ORB,
   AKAZE, SURF and ALIKED features and LightGlue matching run through the
-  CLI and write their files; the options of later slices exit non-zero
-  and name their slice.
+  CLI and write their files; so do the app shell's subcommands
+  (``visualize-features``, ``visualize-matches``, ``resize``,
+  ``restore-images``, ``mask-ui`` through HTTP, ``run-all`` /
+  ``reconstruct --live-viewer-port`` with their ``/state``).
+- ``cli run-all --live-viewer-port``: the viewer's final ``/state`` holds
+  one camera per registered view and the reconstruction's points.
+- The port's ``build_parser()`` has each of the JAX CLI's 15 subcommands
+  with its options (names, defaults, choices, required) and parses an
+  argv that sets every option into JAX's values.
 """
 
 import json
 import os
 import shutil
+import socket
+import threading
+import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import pytest
@@ -147,10 +159,16 @@ def test_run_all_cli(tmp_path, capsys):
     assert cli.main(["extract-metadata", wd, "--device", "cpu"]) == 0
     assert _set_true_focal(wd, Ks, RES, camera_models.CameraModelManager) == N_VIEWS
     capsys.readouterr()
-    assert cli.main(["run-all", wd, "--device", "cpu"]) == 0
+    port = _free_port()
+    assert cli.main(["run-all", wd, "--live-viewer-port", str(port), "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     report = json.loads(out[out.index("{"): out.rindex("}") + 1])
     assert report["n_images"] == N_VIEWS, report
+    # the live viewer keeps serving its last snapshot: every view registered
+    assert f"live reconstruction view: http://localhost:{port}" in out
+    state = json.loads(_get(f"http://127.0.0.1:{port}/state"))
+    assert len(state["cams"]) == N_VIEWS and len(state["points"]) > 100
+    assert all(np.isfinite(c).all() for c in state["cams"])
     with np.load(os.path.join(wd, "features", "view_00.png.features.npz")) as z:
         assert set(z.files) == {"xys", "descriptors", "scores", "valid", "bearings", "width",
                                 "height", "angular_res"}
@@ -190,7 +208,7 @@ def test_masks_filter_features(tmp_path):
     assert len(xys) == (before[:, 0].astype(int) < 64).sum()
 
 
-def test_device_default_and_later_slices(tmp_path, capsys):
+def test_device_default_and_later_slices(tmp_path, capsys, monkeypatch):
     wd = str(tmp_path)
     os.makedirs(os.path.join(wd, "images"))
     Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(os.path.join(wd, "images", "a.png"))
@@ -225,12 +243,140 @@ def test_device_default_and_later_slices(tmp_path, capsys):
     assert cli.main(["create-masks", wd2, "--device", "cpu"]) == 0
     m = np.asarray(Image.open(os.path.join(wd2, "masks", "view_00.png.png")))
     assert m.shape == (96, 96) and m[48, 48] == 0 and m[2, 2] == 255
-    cases = [
-        (["reconstruct", wd, "--live-viewer-port", "8765"], "Slice H"),
-        (["run-all", wd, "--live-viewer-port", "8765"], "Slice H"),
-        (["resize", wd, "--max-dim", "16"], "Slice H"),
-    ]
-    for argv, slice_name in cases:
-        capsys.readouterr()
-        assert cli.main(argv + (["--device", "cpu"] if argv[0] in cli.SFM_COMMANDS else [])) != 0
-        assert slice_name in capsys.readouterr().err, argv
+    # the app shell's subcommands, once refused, run and write their files
+    with open(os.path.join(wd2, "matches", "matches.json"), "w") as f:
+        json.dump({"view_00.png|view_01.png": [[i, 2 * i] for i in range(20)]}, f)
+    assert cli.main(["visualize-features", wd2]) == 0
+    assert sorted(os.listdir(os.path.join(wd2, "previews", "features"))) == [
+        "view_00.png.png", "view_01.png.png"]
+    assert cli.main(["visualize-matches", wd2, "view_01.png", "view_00.png"]) == 0
+    assert Image.open(os.path.join(wd2, "previews", "matches_view_01.png_view_00.png.png")
+                      ).size == (192, 96)
+    originals = _files(wd2, "images")
+    assert cli.main(["resize", wd2, "--max-dim", "48"]) == 0
+    assert _files(wd2, "images_org") == originals
+    assert Image.open(os.path.join(wd2, "images", "view_00.png")).size == (48, 48)
+    assert cli.main(["restore-images", wd2]) == 0
+    assert _files(wd2, "images") == originals
+    os.remove(os.path.join(wd2, "masks", "view_00.png.png"))
+    assert _mask_ui_save(monkeypatch, wd2, {"name": "view_00.png", "points": [[48, 48], [2, 2]],
+                                            "labels": [1, 0]}) == 0
+    assert np.array_equal(np.asarray(Image.open(os.path.join(wd2, "masks", "view_00.png.png"))),
+                          m)
+    for cmd in ("run-all", "reconstruct"):  # two opposite views: nothing registers
+        port = _free_port()
+        assert cli.main([cmd, wd2, "--live-viewer-port", str(port), "--device", "cpu"]) == 0
+        assert os.path.exists(os.path.join(wd2, "tracks.json"))
+        assert os.path.exists(os.path.join(wd2, "reconstruction.json"))
+        state = json.loads(_get(f"http://127.0.0.1:{port}/state"))
+        assert state == {"points": [], "cams": [], "center": [0, 0, 0]}, cmd
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _get(url, data=None):
+    req = urllib.request.Request(url, data=None if data is None else json.dumps(data).encode())
+    return urllib.request.urlopen(req, timeout=60).read()
+
+
+def _mask_ui_save(monkeypatch, wd, spec):
+    """``cli mask-ui --device cpu`` in a thread: /save ``spec``, then stop
+    the server; returns the CLI's exit code."""
+    from splat_one_tpu_torch.app import mask_ui
+
+    servers, port, rc = [], _free_port(), []
+    init = mask_ui.MaskUIServer.__init__
+
+    def record(self, *a, **kw):
+        init(self, *a, **kw)
+        servers.append(self)
+
+    monkeypatch.setattr(mask_ui.MaskUIServer, "__init__", record)
+    th = threading.Thread(target=lambda: rc.append(cli.main(
+        ["mask-ui", wd, "--port", str(port), "--device", "cpu"])), daemon=True)
+    th.start()
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                assert json.loads(_get(f"http://127.0.0.1:{port}/images"))
+                break
+            except urllib.error.URLError:
+                assert time.monotonic() < deadline, "mask-ui did not start"
+                time.sleep(0.05)
+        assert _get(f"http://127.0.0.1:{port}/save", spec) == b"{}"
+    finally:
+        for srv in servers:
+            srv.httpd.shutdown()
+    th.join(timeout=30)
+    assert not th.is_alive()
+    servers[0].httpd.server_close()
+    return rc[0]
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _jax_parser(monkeypatch):
+    """The JAX CLI's parser, as its ``main`` builds it (stopped at
+    ``parse_args``)."""
+    import argparse
+
+    from splat_one_tpu.app import cli as jcli
+
+    box = []
+
+    def grab(self, args=None, namespace=None):
+        box.append(self)
+        raise _Parsed
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", grab)
+        with pytest.raises(_Parsed):
+            jcli.main([])
+    return box[0]
+
+
+def _subcommands(parser):
+    import argparse
+
+    (sub,) = [a for a in parser._actions if isinstance(a, argparse._SubParsersAction)]
+    return sub.choices
+
+
+def _spec(action):
+    return (tuple(action.option_strings), action.default, action.choices, action.required,
+            action.type, action.nargs, type(action).__name__)
+
+
+def test_cli_has_every_jax_subcommand(monkeypatch):
+    jsubs = _subcommands(_jax_parser(monkeypatch))
+    tsubs = _subcommands(cli.build_parser())
+    assert len(jsubs) == 15
+    assert set(tsubs) == set(jsubs)
+    for name, jp in jsubs.items():
+        jact = {a.dest: a for a in jp._actions if a.dest != "help"}
+        tact = {a.dest: a for a in tsubs[name]._actions if a.dest != "help"}
+        assert set(tact) - set(jact) <= {"device"}, name
+        argv = [name]
+        for dest, a in jact.items():
+            assert _spec(tact[dest]) == _spec(a), (name, dest)
+            if not a.option_strings:
+                argv.append(f"{dest}.png")
+            elif a.nargs == 0:
+                argv.append(a.option_strings[0])
+            else:
+                val = a.choices[-1] if a.choices else {int: "7", float: "0.25"}.get(a.type, "x")
+                argv += [a.option_strings[0], val]
+        want = vars(jp.parse_args(argv[1:]))
+        got = vars(cli.build_parser().parse_args(argv))
+        assert got.pop("cmd") == name
+        got.pop("device", None)
+        assert got == want, name
+        if "device" in tact:
+            assert tact["device"].default == "cuda"

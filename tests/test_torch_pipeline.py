@@ -13,10 +13,11 @@ package, on a tiny workdir the test writes: an OpenSfM
   trajectory frames (RGB | depth, 128x48) and the compressed planes with
   their stats.
 - ``cli`` parses every subcommand as the JAX parser does (``train``,
-  ``viewer`` and the SfM subcommands add ``--device``); ``train`` and
-  ``viewer`` reach ``train_splats`` / ``serve_workdir`` with the JAX
-  CLI's arguments; an unported subcommand exits non-zero and names its
-  slice.
+  ``viewer``, ``create-masks``, ``estimate-depth``, ``mask-ui`` and the
+  SfM subcommands add ``--device``); ``train`` and ``viewer`` reach
+  ``train_splats`` / ``serve_workdir`` with the JAX CLI's arguments;
+  ``resize`` / ``restore-images``, once refused, run (the originals come
+  back byte for byte).
 - ``workdir_server`` answers ``/`` and one ``/render`` from a background
   server on the CPU with a JPEG of the Trainer's size.
 """
@@ -194,7 +195,8 @@ ARGVS = [
 def test_cli_parses_as_jax(monkeypatch, capsys, tmp_path):
     for argv in ARGVS:
         ns = vars(cli.build_parser().parse_args(argv))
-        if argv[0] in ("train", "viewer", "create-masks", "estimate-depth") + cli.SFM_COMMANDS:
+        if argv[0] in ("train", "viewer", "create-masks", "estimate-depth",
+                       "mask-ui") + cli.SFM_COMMANDS:
             assert ns.pop("device") == "cuda"
         assert ns == _jax_namespace(argv, monkeypatch), argv
 
@@ -221,15 +223,17 @@ def test_cli_parses_as_jax(monkeypatch, capsys, tmp_path):
     assert cli.main(ARGVS[16]) == 0
     assert calls["vt"] == calls["vj"] + ("cuda",)
 
-    # an unported subcommand exits non-zero and names the slice that ports it
-    capsys.readouterr()
-    assert cli.main(["resize", "w", "--max-dim", "512"]) != 0
-    assert "Slice H" in capsys.readouterr().err
-    # the Depth stage of Slice G runs in its own process and writes depth/
-    # (the seeded compact vits without a checkpoint)
+    # resize and restore-images, once refused, run (host only, no --device)
     wd = tmp_path / "depth_wd"
     (wd / "images").mkdir(parents=True)
     Image.fromarray(np.full((24, 32, 3), 128, np.uint8)).save(wd / "images" / "a.png")
+    original = (wd / "images" / "a.png").read_bytes()
+    assert cli.main(["resize", str(wd), "--max-dim", "16"]) == 0
+    assert Image.open(wd / "images" / "a.png").size == (16, 12)
+    assert cli.main(["restore-images", str(wd)]) == 0
+    assert (wd / "images" / "a.png").read_bytes() == original
+    # the Depth stage of Slice G runs in its own process and writes depth/
+    # (the seeded compact vits without a checkpoint)
     proc = subprocess.run([sys.executable, "-m", "splat_one_tpu_torch.app.cli",
                            "estimate-depth", str(wd), "--device", "cpu"], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

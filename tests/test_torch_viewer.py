@@ -120,7 +120,10 @@ def test_port_never_imports_jax():
             "splat_one_tpu_torch.models.aliked_tpu",
             "splat_one_tpu_torch.models.lightglue_tpu", "splat_one_tpu_torch.models.lpips",
             "splat_one_tpu_torch.models.segmentation", "splat_one_tpu_torch.models.sam2_hiera",
-            "splat_one_tpu_torch.models.depth_tpu"} <= set(mods)
+            "splat_one_tpu_torch.models.depth_tpu", "splat_one_tpu_torch.app.recon_viewer",
+            "splat_one_tpu_torch.app.mask_ui", "splat_one_tpu_torch.data.video",
+            "splat_one_tpu_torch.data.telemetry", "splat_one_tpu_torch.data.download",
+            "splat_one_tpu_torch.utils.profiling", "splat_one_tpu_torch.utils.logger"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke', 'raster_anatomy', 'reduce_anatomy',\n"
