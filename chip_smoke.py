@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
   2. build: compile every kernel in splat_one_tpu_torch/csrc (nvcc,
      sm_90a, one process per source, all at once), timed, with ptxas
      register, shared-memory and spill figures per kernel; the forward
-     and backward compositing kernels must not spill;
+     and backward compositing kernels must not spill; the backward
+     kernels' resident blocks per SM (from those figures and their
+     launches' threads and shared memory);
   3. kernels vs plain versions on the card: small pinhole, spherical,
      edge-partial and empty scenes, a deep-stack scene (a supertile of 12
      chunks whose tiles stop after 12, 1, 7 and 0 of them), a crowded
@@ -21,8 +23,10 @@ Phases (any failure exits non-zero and prints no result line):
      on the same scenes' per-tile layouts and the seg_broadcast kernel on
      their stream builds and a ragged random problem; the forward kernels give their plain versions' bits (with
      each input's blocks: the tiles that composite a chunk and the
-     longest tiles' chunks); each backward kernel launched twice gives the
-     same bits; the
+     longest tiles' chunks); each backward kernel equals its plain
+     version on every row, also launched through its C entry point into
+     a buffer of NaNs (it writes every row itself), and launched twice
+     gives the same bits; the
      stream and tiled paths' renders and end-to-end gradients against the
      dense oracle and against each other on small scenes;
   4. serving at full width: the 1M-gaussian, SH degree 3, 1280x720
@@ -39,7 +43,9 @@ Phases (any failure exits non-zero and prints no result line):
      scene (loss sum(render) + sum(alpha), gradients into all five
      inputs): step time, Mpix/s, per-layer times, device trace, peak
      memory, launch counts, both backward kernels against their plain
-     versions at these inputs (stream_bwd with and without absgrad), the
+     versions at these inputs (stream_bwd with and without absgrad) and
+     at the same step at phase 4's spherical pose (every row, also
+     launched into NaNs), their times and bounds at both poses, the
      reduction of its rows (keyed_perm and seg_reduce bit for bit, with
      and without absgrad; the path's time beside the keyed-row selection
      + index_add_ and the parent's sort and gather; each kernel's device
@@ -94,8 +100,8 @@ Phases (any failure exits non-zero and prints no result line):
      within 5e-4 of each gradient's max; each slab's build + composite
      and fwd+bwd time, the slowest, the unsharded ones beside, the bytes
      a gauss rank would send per step; at slab 1's offset (pinhole)
-     stream_fwd (bits), stream_bwd (KERNEL_TOL), keyed_perm and seg_reduce
-     (bits), and seg_broadcast (bits, at both poses: the spherical slab's
+     stream_fwd, stream_bwd (every row, also launched into NaNs),
+     keyed_perm and seg_reduce (bits), and seg_broadcast (bits, at both poses: the spherical slab's
      segmented parents too)
      against their plain versions, and every slab's build through the
      seg_broadcast kernel equal to the default expansion's; (b) tile_fwd
@@ -227,8 +233,8 @@ Phases (any failure exits non-zero and prints no result line):
      there is an ffmpeg binary, extract_frames on a clip it synthesises
      (testsrc, 7 s, a frame every 2 s: 4 frames), else "not run: no
      ffmpeg"; phase 11's wall time (budget 90 s);
-  6. the kernels line (JSON; the forward rows also carry spherical_ms and
-     spherical_bound_ms; the seg_reduce row is the stream reduction path,
+  6. the kernels line (JSON; the forward and backward compositing rows
+     also carry spherical_ms and spherical_bound_ms; the seg_reduce row is the stream reduction path,
      with its kernel's and its tiled launch's figures beside), then the
      card line, then the result line. Each row also carries
      stage_launches, its launches in phase 5e (i), slab_launches, its
@@ -276,7 +282,13 @@ REL_RENDER, REL_GRAD = 1e-5, 5e-4  # stream vs tiled (tests/test_stream_raster.p
 NO_SPILL = ("stream_fwd", "stream_bwd", "tile_fwd", "tile_bwd")  # held to 0 B of spill
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
+    """print, flushed; a phase's first line also says when it began."""
+    if a and isinstance(a[0], str) and a[0].startswith("phase "):
+        a = (*a[:-1], f"{a[-1]} [at {time.perf_counter() - _T0:.0f} s]")
     print(*a, flush=True)
 
 
@@ -310,6 +322,30 @@ def ptxas_entries(text):
         if m:
             out.append((kern, int(m.group(1)), *spill, m.group(2).strip(", ")))
     return out
+
+
+# the backward kernels' threads a block and dynamic shared memory
+# (csrc/stream_bwd.cu smem_bytes: two staged chunks, the 32-pixel warps'
+# partials [128][32][NR] f32, two chunks' gate bytes; csrc/tile_bwd.cu
+# SMEM_BYTES: one staged chunk, partials [128][8][12] f32)
+BWD_LAUNCH = {"stream_bwd_kernel<false>": (512, 2 * 8192 + 128 * 32 * 10 * 4 + 2 * 4 * 128),
+              "stream_bwd_kernel<true>": (512, 2 * 8192 + 128 * 32 * 12 * 4 + 2 * 4 * 128),
+              "tile_bwd_kernel": (128, 8192 + 128 * 8 * 12 * 4)}
+
+
+def resident_blocks(regs, threads, smem):
+    """Blocks of a kernel resident on one SM of card 0, from its ptxas
+    registers a thread, threads a block and shared bytes a block: the
+    least of the SM's block, thread, register (256 a warp at a time) and
+    shared-memory (1 KiB reserved a block) limits."""
+    import torch
+
+    prop = torch.cuda.get_device_properties(0)
+    warps = -(-threads // 32)
+    regs_block = warps * -(-regs * 32 // 256) * 256
+    return min(32, prop.max_threads_per_multi_processor // threads,
+               prop.regs_per_multiprocessor // regs_block,
+               prop.shared_memory_per_multiprocessor // (smem + 1024))
 
 
 # ---------------------------------------------------------------- scenes
@@ -519,10 +555,21 @@ def compare_tile_fwd(name, cfg, starts, packed, tile_offset=0):
     return worst, out_k, plain_ms
 
 
+def nan_launch_equal(launch, want):
+    """Launch a backward kernel through its C entry point (``launch(buf)``,
+    the wrapper's launch into a given buffer) into a buffer of NaNs: true
+    where every row then equals ``want``, so that the kernel wrote each."""
+    import torch
+
+    buf = torch.full_like(want, float("nan"))
+    launch(buf)
+    return bool(torch.equal(buf, want))
+
+
 def compare_tile_bwd(name, cfg, starts, packed, out, gout, tile_offset=0):
     """tile_bwd kernel vs its plain version (a slab's at its
-    ``tile_offset``), and a second launch bit for bit -> (max abs err,
-    kernel rows, plain ms)."""
+    ``tile_offset``): every row equal, also launched into NaNs, and a
+    second launch bit for bit -> (max abs err, kernel rows, plain ms)."""
     import torch
     from splat_one_tpu_torch.ops import intersect as itx
     from splat_one_tpu_torch.ops import tile_raster as tr
@@ -533,7 +580,56 @@ def compare_tile_bwd(name, cfg, starts, packed, out, gout, tile_offset=0):
             f"{name}: two tile_bwd launches differ")
     pg_p, plain_ms = timed_once(lambda: tr.tile_bwd_plain(*args))
     require(not bool(pg_k[:, itx.N_GROWS:].any()), f"{name}: tile_bwd pad columns")
-    return column_err(name, "tile_bwd", pg_k, pg_p), pg_k, plain_ms
+    err = column_err(name, "tile_bwd", pg_k, pg_p)
+    require(bool(torch.equal(pg_k, pg_p)), f"{name}: tile_bwd differs from its plain "
+            f"version (max abs err {err:.3e})")
+    require(nan_launch_equal(lambda buf: tr._launch_tile_bwd(
+        cfg, starts.contiguous(), packed.contiguous(), out.contiguous(), gout.contiguous(),
+        buf, tile_offset), pg_p), f"{name}: tile_bwd launched into NaNs differs")
+    return err, pg_k, plain_ms
+
+
+def stream_bwd_bound(cfg, st, packed, out):
+    """(bound ms, by what, bytes, chunks reached, pairs, ops a pair) of
+    stream_bwd on these inputs: the slot rows of the chunks the tiles
+    reached read once, every gradient row written once (the kernel writes
+    all pad_cap), fwd_out channels 0-5 and gout channels 0-4 read once;
+    the gated pairs of those chunks x the backward's operations a pair."""
+    import torch
+    from splat_one_tpu_torch.ops import stream_isect as si
+    from splat_one_tpu_torch.ops import stream_raster as sr
+
+    pairs = gated_pairs(cfg, st, packed, out)
+    starts = st.long()
+    base0 = torch.div(starts[:-1], cfg.chunk, rounding_mode="floor") * cfg.chunk
+    chunks = torch.minimum(-torch.div(base0 - starts[1:], cfg.chunk, rounding_mode="floor"),
+                           out[:, :, sr.CH_NCHUNKS, 0].long().amax(-1))
+    n_chunks = int(chunks.sum())
+    nbytes = ((n_chunks * cfg.chunk + cfg.pad_cap) * si.NF * 4
+              + (6 + 5) * cfg.cs * cfg.nt * cfg.npix * 4)
+    ops_per_pair = OPS_PER_PAIR_BWD + (si.N_GCOLS if cfg.absgrad else si.GCOL_ABSDX)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = pairs * ops_per_pair / F32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes,
+            n_chunks, pairs, ops_per_pair)
+
+
+def tile_bwd_bound(cfg, out):
+    """(bound ms, by what, bytes, chunks replayed, pairs, ops a pair) of
+    tile_bwd on these inputs: the replayed slot rows read once, every
+    gradient row written once (the kernel writes all align_cap), fwd_out
+    channels 0-5 and gout channels 0-4 read once; every pair of the
+    replayed chunks x the backward's operations a pair."""
+    from splat_one_tpu_torch.ops import intersect as itx
+
+    n_chunks, pairs = tile_work(cfg, out)
+    nbytes = ((n_chunks * cfg.chunk + cfg.align_cap) * itx.NF * 4
+              + (6 + 5) * cfg.ct * cfg.npix * 4)
+    ops_per_pair = OPS_PER_PAIR_BWD + itx.N_GROWS
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = pairs * ops_per_pair / F32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes,
+            n_chunks, pairs, ops_per_pair)
 
 
 def tile_work(cfg, out):
@@ -961,11 +1057,11 @@ def column_err(name, label, got, want):
 
 def compare_bwd(name, cfg, st_starts, st_starts_al, packed, out, gout, m0, tile_offset=0):
     """Backward kernel vs plain version on the same inputs (a slab's at
-    its ``tile_offset``; key column exactly, gradient columns within
-    KERNEL_TOL; a second launch bit for bit), then the reduction of the
-    kernel's rows: keyed_perm and the segmented reduce kernel each bit for
-    bit against their plain versions. Returns (max abs err bwd, max abs
-    err reduce, kernel rows, perm, bounds)."""
+    its ``tile_offset``): every row equal, also launched into NaNs, and a
+    second launch bit for bit; then the reduction of the kernel's rows:
+    keyed_perm and the segmented reduce kernel each bit for bit against
+    their plain versions. Returns (max abs err bwd, max abs err reduce,
+    kernel rows, perm, bounds)."""
     import torch
     from splat_one_tpu_torch.ops import stream_isect as si
     from splat_one_tpu_torch.ops import stream_raster as sr
@@ -980,12 +1076,19 @@ def compare_bwd(name, cfg, st_starts, st_starts_al, packed, out, gout, m0, tile_
     require(bool(torch.equal(pg_k[:, si.GCOL_KEY:], pg_p[:, si.GCOL_KEY:])),
             f"{name}: backward key / pad columns differ")
     e_bwd = column_err(name, "backward", pg_k[:, :si.GCOL_KEY], pg_p[:, :si.GCOL_KEY])
+    require(bool(torch.equal(pg_k, pg_p)), f"{name}: stream_bwd differs from its plain "
+            f"version (max abs err {e_bwd:.3e})")
+    require(nan_launch_equal(lambda buf: sr._launch_stream_bwd(
+        cfg, st_starts.contiguous(), st_starts_al.contiguous(), packed.contiguous(),
+        out.contiguous(), gout.contiguous(), buf, tile_offset), pg_p),
+        f"{name}: stream_bwd launched into NaNs differs")
     n_payload = si.N_GCOLS if cfg.absgrad else si.GCOL_ABSDX
     e_red, perm, bounds = compare_stream_reduction(name, pg_k, m0, n_payload)
     n_rows = int((pg_k[:, si.GCOL_KEY] > 0).sum())
-    log(f"  {name}: stream_bwd (absgrad {cfg.absgrad}) abs err {e_bwd:.3e} over "
-        f"{n_rows} keyed rows, key column equal, two launches equal; keyed_perm and "
-        f"seg_reduce equal to their plain versions bit for bit over {m0} gaussians")
+    log(f"  {name}: stream_bwd (absgrad {cfg.absgrad}) equal to its plain version on "
+        f"all {pg_k.shape[0]} rows ({n_rows} keyed), also launched into NaNs; two launches "
+        f"equal; keyed_perm and seg_reduce equal to their plain versions bit for bit over "
+        f"{m0} gaussians")
     return e_bwd, e_red, pg_k, perm, bounds
 
 
@@ -1070,7 +1173,7 @@ def oracle_grad_check(dev, impl="stream"):
         f"dense oracle by autograd: worst rel err {worst:.2e} (bar {GRAD_RTOL})")
 
 
-def bench_caps(proj, w, h):
+def bench_caps(proj, w, h, camera_model="pinhole"):
     """bench.py's caps: one warm-up build at generous caps, then caps sized
     from the measured intersection count (StreamCaps.choose_observed)."""
     from splat_one_tpu_torch.ops import stream_isect as si
@@ -1078,8 +1181,51 @@ def bench_caps(proj, w, h):
     C, N = proj.depths.shape
     _, _, sgw, sgh = si.supertile_grid(w, h, 16)
     caps0 = si.StreamCaps.choose(N, C, C * sgw * sgh, avg_supertiles_per_gaussian=4.0)
-    n0 = int(si.build_stream_intersections(proj, w, h, 16, caps0).n_isect)
+    n0 = int(si.build_stream_intersections(proj, w, h, 16, caps0,
+                                           camera_model=camera_model).n_isect)
     return si.StreamCaps.choose_observed(n0, C * sgw * sgh)
+
+
+def step_cotangent(out, to_image):
+    """The cotangent of a compositing output under bench.py's step loss,
+    sum(render, RGB+ED) + sum(alpha)."""
+    import torch
+
+    leaf = out.detach().requires_grad_(True)
+    rgb, a, d = to_image(leaf)
+    loss = torch.cat([rgb, d / torch.clamp(a, min=1e-10)], -1).sum() + a.sum()
+    return torch.autograd.grad(loss, leaf)[0].contiguous()
+
+
+def step_bwd_inputs(sc, dev, camera_model):
+    """bench.py's fwd+bwd step on scene ``sc`` at ``camera_model``, up to
+    the backward kernels: {"stream": (cfg, st_starts, st_starts_al, packed,
+    out, gout) at the step's observed caps, "tiled": (cfg, tile_starts,
+    packed, out, gout, isect)}, ``out`` the forward kernel's, ``gout`` the
+    step loss's cotangent of it."""
+    import torch
+    from splat_one_tpu_torch.ops import stream_isect as si
+    from splat_one_tpu_torch.ops import stream_raster as sr
+    from splat_one_tpu_torch.ops import tile_raster as tr
+
+    scm = dict(sc, camera_model=camera_model)
+    with torch.no_grad():
+        proj = project(scm, dev)
+        caps = bench_caps(proj, sc["w"], sc["h"], camera_model)
+        C, N = proj.depths.shape
+        cfg = sr.StreamCfg.from_caps(caps, sc["w"], sc["h"], 16, C, N,
+                                     wrap_x=(camera_model == "spherical"))
+        isect = si.build_stream_intersections(proj, sc["w"], sc["h"], 16, caps,
+                                              camera_model=camera_model)
+        require(not bool(isect.overflow), f"{camera_model} step layout overflow")
+        packed = si.pack_stream(si.build_fields(proj), isect, caps)
+        out = sr.stream_fwd(cfg, isect.st_starts, packed)
+        cfg_t, st_t, packed_t, isect_t = tile_inputs(scm, proj)
+        out_t = tr.tile_fwd(cfg_t, st_t, packed_t)
+    return {"stream": (cfg, isect.st_starts, isect.st_starts_al, packed, out,
+                       step_cotangent(out, lambda o: sr.stream_to_image(cfg, o))),
+            "tiled": (cfg_t, st_t, packed_t, out_t,
+                      step_cotangent(out_t, lambda o: tr.tiles_to_image(cfg_t, o)), isect_t)}
 
 
 def ring_scene(dev):
@@ -1351,22 +1497,10 @@ def training_phase(dev, card, sc, max_err):
     lib_diff = max(float((library_reduce().T - red_ref).abs().max()),
                    float((library_selected().T - red_ref).abs().max()))
     # bounds count what this run's data needs: the chunks the tiles reached
-    # (early termination leaves the rest of each stream unread and its
-    # gradient rows unwritten) and, for the reduction, the keyed rows
-    pairs = gated_pairs(cfg, st, packed, out)
-    starts = st.long()
-    base0 = torch.div(starts[:-1], cfg.chunk, rounding_mode="floor") * cfg.chunk
-    chunks = torch.minimum(-torch.div(base0 - starts[1:], cfg.chunk, rounding_mode="floor"),
-                           out[:, :, sr.CH_NCHUNKS, 0].long().amax(-1))
-    n_chunks = int(chunks.sum())
-    # slot rows read and gradient rows written (64 B each), fwd_out channels
-    # 0-5 and gout channels 0-4 read
-    bwd_bytes = (2 * n_chunks * cfg.chunk * si.NF * 4
-                 + (6 + 5) * cfg.cs * cfg.nt * cfg.npix * 4)
-    ops_per_pair = OPS_PER_PAIR_BWD + n_pay
-    bwd_ops_s = pairs * ops_per_pair / F32_OPS_PER_S
-    bwd_bound = max(bwd_bytes / HBM_BYTES_PER_S, bwd_ops_s) * 1e3
-    bwd_by = "bytes" if bwd_bytes / HBM_BYTES_PER_S >= bwd_ops_s else "operations"
+    # (early termination leaves the rest of each stream unread) and, for the
+    # reduction, the keyed rows
+    bwd_bound, bwd_by, bwd_bytes, n_chunks, pairs, ops_per_pair = stream_bwd_bound(
+        cfg, st, packed, out)
     n_keyed = int(keyed.sum())
     # keyed_perm: the key column read (4 B a row), bounds and the keyed rows'
     # indices written; seg_reduce: the keyed rows' payload, their index
@@ -1381,8 +1515,24 @@ def training_phase(dev, card, sc, max_err):
     log(f"  stream_bwd at 1M/720p: {bwd_ms:.4f} ms (CUDA events, 10 launches; with "
         f"absgrad {bwd_abs_ms:.4f} ms); plain "
         f"version {bwd_plain_ms:.1f} ms; bound {bwd_bound:.4f} ms by {bwd_by} "
-        f"({bwd_bytes / 1e6:.1f} MB over {n_chunks} chunks reached, {pairs / 1e6:.1f} M "
-        f"pixel-slot pairs x {ops_per_pair} ops) | {card}")
+        f"({bwd_bytes / 1e6:.1f} MB over {n_chunks} chunks reached and {cfg.pad_cap} rows "
+        f"written, {pairs / 1e6:.1f} M pixel-slot pairs x {ops_per_pair} ops) | {card}")
+
+    # the same at the spherical step input (phase 4's spherical pose)
+    sph = step_bwd_inputs(sc, dev, "spherical")
+    cfg_s, st_s, st_al_s, packed_s, out_s, gout_s = sph["stream"]
+    e_s, e_rs, *_ = compare_bwd("training 1M spherical", cfg_s, st_s, st_al_s, packed_s,
+                                out_s, gout_s, N)
+    max_err["stream_bwd"] = max(max_err["stream_bwd"], e_s)
+    max_err["seg_reduce"] = max(max_err["seg_reduce"], e_rs)
+    sph_ms = cuda_ms(lambda: sr.stream_bwd(cfg_s, st_s, st_al_s, packed_s, out_s, gout_s), 10)
+    sph_bound, sph_by, sph_bytes, sph_chunks, sph_pairs, _ = stream_bwd_bound(
+        cfg_s, st_s, packed_s, out_s)
+    log(f"  stream_bwd at the 1M spherical step input: {sph_ms:.4f} ms (CUDA events, 10 "
+        f"launches); bound {sph_bound:.4f} ms by {sph_by} ({sph_bytes / 1e6:.1f} MB over "
+        f"{sph_chunks} chunks reached and {cfg_s.pad_cap} rows written, "
+        f"{sph_pairs / 1e6:.1f} M pixel-slot pairs x {ops_per_pair} ops) | {card}")
+    del cfg_s, st_s, st_al_s, packed_s, out_s, gout_s
     log(f"  the stream reduction at 1M/720p from the backward's rows ({n_keyed} keyed of "
         f"pad_cap {cfg.pad_cap}, {n_pay} columns): reduce_stream_grads {path_ms:.4f} ms "
         f"(CUDA events, 20 calls; device busy {path_dev or float('nan'):.4f} ms a call), "
@@ -1402,7 +1552,9 @@ def training_phase(dev, card, sc, max_err):
     del proj, psg, g_split, pg, seg, pg_k, perm_k, bounds_k, keys, key32
     del keyed, keys_live, payload_live, red_ref, perm_p, bounds_p
     torch.cuda.empty_cache()
-    tile_bwd_row, tiled_red = tiled_step_phase(dev, card, leaves, vm, Kt, grads, max_err)
+    tile_bwd_row, tiled_red = tiled_step_phase(dev, card, leaves, vm, Kt, grads, max_err,
+                                               sph.pop("tiled"))
+    del sph
     sb_row = seg_broadcast_phase(dev, card, leaves, vm, Kt, proj0, caps)
     del grads, leaves
     torch.cuda.empty_cache()
@@ -1483,7 +1635,7 @@ def training_phase(dev, card, sc, max_err):
              replaces="splat_one_tpu/ops/stream_raster.py:397",
              launches=tcounts.get("stream_bwd", 0), max_abs_err=max_err["stream_bwd"],
              ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_bound, bound_by=bwd_by,
-             library_ms=None),
+             library_ms=None, spherical_ms=sph_ms, spherical_bound_ms=sph_bound),
         # the stream reduction path from the backward's rows (keyed_perm, then
         # this kernel); kernel_* the kernel alone, tiled_* its tiled launch
         dict(name="seg_reduce", route="cuda", source="splat_one_tpu_torch/csrc/seg_reduce.cu",
@@ -1620,9 +1772,10 @@ def tiled_render_phase(dev, card, sc, max_err):
                 library_ms=None, spherical_ms=sph_ms, spherical_bound_ms=sph_bound_ms)
 
 
-def tiled_step_phase(dev, card, leaves, vm, Kt, grads_stream, max_err):
-    """Phase 5a-i (see the module docstring). Returns the kernels-line row
-    of tile_bwd without its launches."""
+def tiled_step_phase(dev, card, leaves, vm, Kt, grads_stream, max_err, sph_inputs):
+    """Phase 5a-i (see the module docstring); ``sph_inputs`` the tiled
+    backward's inputs at the spherical step (``step_bwd_inputs``). Returns
+    the kernels-line row of tile_bwd without its launches."""
     import torch
     from splat_one_tpu_torch.ops import intersect as itx
     from splat_one_tpu_torch.ops import tile_raster as tr
@@ -1681,18 +1834,23 @@ def tiled_step_phase(dev, card, leaves, vm, Kt, grads_stream, max_err):
     e_b, pg_k, plain_ms = compare_tile_bwd("tiled 1M pinhole step", cfg, st, packed, out, gout)
     max_err["tile_bwd"] = max(max_err["tile_bwd"], e_b)
     bwd_ms = cuda_ms(lambda: tr.tile_bwd(cfg, st, packed, out, gout), 10)
-    n_chunks, pairs = tile_work(cfg, out)
-    # replayed slot rows read and gradient rows written (64 B each),
-    # fwd_out channels 0-5 and gout channels 0-4 read
-    bwd_bytes = 2 * n_chunks * cfg.chunk * itx.NF * 4 + (6 + 5) * cfg.ct * cfg.npix * 4
-    ops_per_pair = OPS_PER_PAIR_BWD + itx.N_GROWS
-    bytes_ms = bwd_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = pairs * ops_per_pair / F32_OPS_PER_S * 1e3
-    bound_ms, bound_by = max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+    bound_ms, bound_by, bwd_bytes, n_chunks, pairs, ops_per_pair = tile_bwd_bound(cfg, out)
     log(f"  tile_bwd at 1M/720p: {bwd_ms:.4f} ms (CUDA events, 10 launches); plain version "
         f"{plain_ms:.1f} ms; bound {bound_ms:.4f} ms by {bound_by} ({n_chunks} chunks "
         f"replayed, {pairs / 1e6:.1f} M pixel-slot pairs x {ops_per_pair} ops, "
-        f"{bwd_bytes / 1e6:.1f} MB); abs err vs plain {e_b:.3e} | {card}")
+        f"{bwd_bytes / 1e6:.1f} MB with all {cfg.align_cap} rows written); abs err vs plain "
+        f"{e_b:.3e} | {card}")
+    cfg_s, st_s, packed_s, out_s, gout_s, _ = sph_inputs
+    e_s, _, _ = compare_tile_bwd("tiled 1M spherical step", cfg_s, st_s, packed_s, out_s,
+                                 gout_s)
+    max_err["tile_bwd"] = max(max_err["tile_bwd"], e_s)
+    sph_ms = cuda_ms(lambda: tr.tile_bwd(cfg_s, st_s, packed_s, out_s, gout_s), 10)
+    sph_bound, sph_by, sph_bytes, sph_chunks, sph_pairs, _ = tile_bwd_bound(cfg_s, out_s)
+    log(f"  tile_bwd at the 1M spherical step input: {sph_ms:.4f} ms (CUDA events, 10 "
+        f"launches); bound {sph_bound:.4f} ms by {sph_by} ({sph_chunks} chunks replayed, "
+        f"{sph_pairs / 1e6:.1f} M pixel-slot pairs, {sph_bytes / 1e6:.1f} MB); equal to its "
+        f"plain version | {card}")
+    del cfg_s, st_s, packed_s, out_s, gout_s, sph_inputs
 
     # the tiled reduction (one seg_reduce launch through rank_perm, written at
     # rank_src) at these rows: vs plain, time, bound; beside it the live-slot
@@ -1729,7 +1887,7 @@ def tiled_step_phase(dev, card, leaves, vm, Kt, grads_stream, max_err):
     return dict(name="tile_bwd", route="cuda", source="splat_one_tpu_torch/csrc/tile_bwd.cu",
                 replaces="splat_one_tpu/ops/tile_raster.py:221", max_abs_err=None,
                 ms=bwd_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None), tiled_red
+                library_ms=None, spherical_ms=sph_ms, spherical_bound_ms=sph_bound), tiled_red
 
 
 def seg_broadcast_phase(dev, card, leaves, vm, Kt, proj0, caps):
@@ -4791,6 +4949,10 @@ def main():
                 f"loads; {rest}")
             if name in NO_SPILL:
                 require(stores == 0 and loads == 0, f"{name}: {kern} spills")
+            if kern in BWD_LAUNCH:
+                threads, smem = BWD_LAUNCH[kern]
+                log(f"    {kern}: {threads} threads, {smem} B dynamic shared memory a "
+                    f"block: {resident_blocks(regs, threads, smem)} blocks per SM")
     for name in cuda_build.SIGNATURES:
         cuda_build.library(name)
 

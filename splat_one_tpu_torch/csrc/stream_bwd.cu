@@ -14,8 +14,12 @@
 // means2d, conic (a, b, c), opacity, rgb, depth and, with absgrad,
 // |d means2d|. Rows are written slot-major, [pad_cap, 16], at the
 // supertile's G-aligned offset st_starts_al[t] + k G + g; column 12 is the
-// reduce key, gid + 1 on the supertile's own slots and 0 elsewhere. Rows of
-// chunks no tile reached stay as the wrapper zeroed them.
+// reduce key, gid + 1 on the supertile's own slots and 0 elsewhere. Every
+// other row of the output is written 0 by the kernel itself (the output
+// needs no zeroed buffer): each block zeroes the rows of its range
+// [st_starts_al[t], st_starts_al[t + 1]) past the chunks it replays, and
+// all blocks share the rows outside every range ([0, st_starts_al[0]) and
+// [st_starts_al[CS], pad_cap)) in a grid-stride loop.
 //
 // Design. One block per supertile, 512 threads, each thread two pixels of
 // one tile, p and p + 16 of a row pair, so each half of a hardware warp
@@ -49,12 +53,18 @@
 // so it is bound by operations: the pairs its data needs x ~65 f32
 // operations at 67 TFLOP/s. The kernel stays well above that bound because
 // its warps wait: a slot is a chain of dependent steps (exp, reciprocal,
-// shuffles) and one block of 16 warps per SM (97 registers a thread, 209
-// KiB of shared memory) waits at every chunk's barrier for the warps of
-// the supertile's busiest tile. The design shortens the chains (no
+// shuffles) and one block of 16 warps per SM (98-99 registers a thread,
+// 209 KiB of shared memory) waits at every chunk's barrier for the warps
+// of the supertile's busiest tile. The design shortens the chains (no
 // division branch, two pixels a thread, sums overlapped with the next
-// slot) and never visits an ungated slot; splitting the supertile's work
-// more evenly over its warps is the next step.
+// slot) and never visits an ungated slot. The rows no chunk reaches are
+// zeroed by stores that overlap that arithmetic, where a zeroed buffer
+// was a separate pass before the kernel. A cluster of four tile blocks
+// (four blocks of 4 warps an SM, each waiting only for its own cluster,
+// the partials summed through distributed shared memory) was slower on
+// the H100 at the 1M pinhole step input and no faster at the spherical
+// one: its warps still wait for the supertile's busiest tile every chunk,
+// and they walk the same chains with no more of them resident.
 //
 // The launcher returns cudaGetLastError() of the launch.
 
@@ -103,8 +113,8 @@ stream_bwd_kernel(const int* __restrict__ st_starts,
                   const float* __restrict__ fwd_out,  // [CS, NT, OUT_CH, P]
                   const float* __restrict__ gout,     // [CS, NT, OUT_CH, P]
                   float* __restrict__ pgrad,          // [pad_cap, NF]
-                  int sw, int sh, int tw, int st_offset, int wrap_x,
-                  float width, float inv_width) {
+                  int cs, int pad_cap, int sw, int sh, int tw, int st_offset,
+                  int wrap_x, float width, float inv_width) {
   constexpr int NR = ABS ? 12 : 10;  // reduced gradient columns
   extern __shared__ float4 smem[];
   float4* s_chunk = smem;                                        // [2][CHUNK4]
@@ -131,6 +141,23 @@ stream_bwd_kernel(const int* __restrict__ st_starts,
                   static_cast<int>(fwd_out[tile0 + (jj * OUT_CH + CH_NCHUNKS) * P]));
   }
   const int nchunks = min((s1 - base0 + G - 1) / G, nch_max);
+
+  // The rows no chunk reaches, as 0: this supertile's past its replayed
+  // chunks, and a share of those outside every range.
+  {
+    float4* out4 = reinterpret_cast<float4*>(pgrad);
+    const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const int64_t lo = 4 * (static_cast<int64_t>(a0) + static_cast<int64_t>(nchunks) * G);
+    const int64_t hi = 4 * static_cast<int64_t>(st_starts_al[t + 1]);
+    for (int64_t i = lo + tid; i < hi; i += THREADS) out4[i] = zero4;
+    const int64_t head = 4 * static_cast<int64_t>(st_starts_al[0]);
+    const int64_t tail0 = 4 * static_cast<int64_t>(min(st_starts_al[cs], pad_cap));
+    const int64_t n_out = head + 4 * static_cast<int64_t>(pad_cap) - tail0;
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + tid; i < n_out;
+         i += static_cast<int64_t>(gridDim.x) * THREADS) {
+      out4[i < head ? i : tail0 + (i - head)] = zero4;
+    }
+  }
 
   // t indexes this launch's slab (starts, fwd_out, gout, the gradient
   // rows); the pixels come from the global supertile id t + st_offset
@@ -336,15 +363,15 @@ stream_bwd_kernel(const int* __restrict__ st_starts,
 template <bool ABS>
 int launch(const int* st_starts, const int* st_starts_al, const float* packed,
            const float* fwd_out, const float* gout, float* pgrad, int cs,
-           int sw, int sh, int tw, int st_offset, int wrap_x, float width,
-           float inv_width, cudaStream_t stream) {
+           int pad_cap, int sw, int sh, int tw, int st_offset, int wrap_x,
+           float width, float inv_width, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<ABS ? 12 : 10>();
   cudaError_t err = cudaFuncSetAttribute(
       stream_bwd_kernel<ABS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   stream_bwd_kernel<ABS><<<cs, THREADS, bytes, stream>>>(
       st_starts, st_starts_al, reinterpret_cast<const float4*>(packed), fwd_out,
-      gout, pgrad, sw, sh, tw, st_offset, wrap_x, width, inv_width);
+      gout, pgrad, cs, pad_cap, sw, sh, tw, st_offset, wrap_x, width, inv_width);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -352,18 +379,18 @@ int launch(const int* st_starts, const int* st_starts_al, const float* packed,
 
 extern "C" int stream_bwd(const int* st_starts, const int* st_starts_al,
                           const float* packed, const float* fwd_out,
-                          const float* gout, float* pgrad, int cs, int sw,
-                          int sh, int tw, int st_offset, int wrap_x,
-                          float width, float inv_width, int absgrad,
-                          void* stream) {
+                          const float* gout, float* pgrad, int cs,
+                          int pad_cap, int sw, int sh, int tw, int st_offset,
+                          int wrap_x, float width, float inv_width,
+                          int absgrad, void* stream) {
   if (cs <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return absgrad ? launch<true>(st_starts, st_starts_al, packed, fwd_out, gout,
-                                pgrad, cs, sw, sh, tw, st_offset, wrap_x, width,
-                                inv_width, s)
+                                pgrad, cs, pad_cap, sw, sh, tw, st_offset, wrap_x,
+                                width, inv_width, s)
                  : launch<false>(st_starts, st_starts_al, packed, fwd_out, gout,
-                                 pgrad, cs, sw, sh, tw, st_offset, wrap_x, width,
-                                 inv_width, s);
+                                 pgrad, cs, pad_cap, sw, sh, tw, st_offset, wrap_x,
+                                 width, inv_width, s);
 }
 
 extern "C" const char* splat_cuda_error_string(int code) {

@@ -13,8 +13,11 @@
 // (a, b, c), opacity, rgb, depth and |d means2d| (12 columns, GROW_* of
 // ops/intersect.py). Rows are slot-major, [align_cap, 16], one per slot of
 // the replayed chunks; every slot belongs to exactly one tile, so every row
-// has one writer. Rows of chunks past n_chunks stay as the wrapper zeroed
-// them (the TPU kernel aliases a zero buffer into its output for that).
+// has one writer. Every other row is written 0 by the kernel itself (the
+// TPU kernel aliases a zero buffer into its output for that): each block
+// zeroes the rows of its tile's range [starts[t], starts[t + 1]) past the
+// chunks it replays, and all blocks share the rows outside every range
+// ([0, starts[0]) and [starts[CT], align_cap)) in a grid-stride loop.
 //
 // Design. One block per tile, 128 threads, each thread two pixels, p and
 // p + 16 of a row pair, so each half of a hardware warp carries one
@@ -48,8 +51,10 @@
 // bound because its warps wait: a slot is a chain of dependent steps (exp,
 // reciprocal, shuffles), with 16 warps per SM to cover it. The design
 // shortens the chains (no division branch, two pixels a thread, sums
-// overlapped with the next slot). The wrapper's zeroed output (align_cap
-// rows, most of them in chunks no tile replays) is a fifth of the call.
+// overlapped with the next slot). The rows no tile replays (most of the
+// align_cap rows) are zeroed by stores that overlap that arithmetic, where
+// a zeroed buffer was a separate pass before the kernel, a fifth of the
+// call.
 //
 // The launcher returns cudaGetLastError() of the launch.
 
@@ -87,8 +92,8 @@ tile_bwd_kernel(const int* __restrict__ starts,
                 const float* __restrict__ fwd_out,  // [CT, OUT_CH, P]
                 const float* __restrict__ gout,     // [CT, OUT_CH, P]
                 float* __restrict__ pgrad,          // [align_cap, NF]
-                int tw, int tiles_per_cam, int tile_offset, int wrap_x,
-                float width, float inv_width) {
+                int ct, int align_cap, int tw, int tiles_per_cam,
+                int tile_offset, int wrap_x, float width, float inv_width) {
   extern __shared__ float4 smem[];
   float4* s_chunk = smem;                                   // [CHUNK4]
   float* s_part = reinterpret_cast<float*>(smem + CHUNK4);  // [G][VWARPS][NR]
@@ -104,6 +109,23 @@ tile_bwd_kernel(const int* __restrict__ starts,
   const int64_t tile0 = static_cast<int64_t>(t) * OUT_CH * P;
   const int nchunks = min((starts[t + 1] - start) / G,
                           static_cast<int>(fwd_out[tile0 + CH_NCHUNKS * P]));
+
+  // The rows no chunk reaches, as 0: this tile's past its replayed chunks,
+  // and a share of those outside every tile's range.
+  {
+    float4* out4 = reinterpret_cast<float4*>(pgrad);
+    const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const int64_t lo = 4 * (static_cast<int64_t>(start) + static_cast<int64_t>(nchunks) * G);
+    const int64_t hi = 4 * static_cast<int64_t>(starts[t + 1]);
+    for (int64_t i = lo + tid; i < hi; i += THREADS) out4[i] = zero4;
+    const int64_t head = 4 * static_cast<int64_t>(starts[0]);
+    const int64_t tail0 = 4 * static_cast<int64_t>(min(starts[ct], align_cap));
+    const int64_t n_out = head + 4 * static_cast<int64_t>(align_cap) - tail0;
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + tid; i < n_out;
+         i += static_cast<int64_t>(gridDim.x) * THREADS) {
+      out4[i < head ? i : tail0 + (i - head)] = zero4;
+    }
+  }
 
   // t indexes this launch's tiles (starts, fwd_out, gout); the pixels
   // come from the global tile id t + tile_offset
@@ -241,15 +263,16 @@ tile_bwd_kernel(const int* __restrict__ starts,
 
 extern "C" int tile_bwd(const int* starts, const float* packed,
                         const float* fwd_out, const float* gout, float* pgrad,
-                        int ct, int tw, int tiles_per_cam, int tile_offset,
-                        int wrap_x, float width, float inv_width, void* stream) {
+                        int ct, int align_cap, int tw, int tiles_per_cam,
+                        int tile_offset, int wrap_x, float width,
+                        float inv_width, void* stream) {
   if (ct <= 0) return 0;
   cudaError_t err = cudaFuncSetAttribute(
       tile_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   tile_bwd_kernel<<<ct, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      starts, reinterpret_cast<const float4*>(packed), fwd_out, gout, pgrad, tw,
-      tiles_per_cam, tile_offset, wrap_x, width, inv_width);
+      starts, reinterpret_cast<const float4*>(packed), fwd_out, gout, pgrad, ct,
+      align_cap, tw, tiles_per_cam, tile_offset, wrap_x, width, inv_width);
   return static_cast<int>(cudaGetLastError());
 }
 

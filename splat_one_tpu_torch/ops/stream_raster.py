@@ -413,7 +413,7 @@ def stream_bwd(cfg: StreamCfg, st_starts: torch.Tensor,
                tile_offset: int = 0) -> torch.Tensor:
     """Backward compositing -> per-slot gradient rows [pad_cap, NF] f32
     (``GCOL_*`` columns; the key column holds gid + 1 on each supertile's
-    own slots and rows never reached stay 0).
+    own slots and rows never reached are 0).
 
     ``fwd_out`` is the forward's output (its n_chunks channel sets how
     far each tile replays), ``gout`` the cotangent of it, ``tile_offset``
@@ -430,21 +430,28 @@ def stream_bwd(cfg: StreamCfg, st_starts: torch.Tensor,
         if t.dtype != torch.float32 or tuple(t.shape) != shape or t.device != packed.device:
             raise ValueError(f"{name} must be f32 {shape} on {packed.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    fwd_out = fwd_out.contiguous()
-    gout = gout.contiguous()
-    # rows of chunks no tile reaches must read 0 (the reduce skips key 0)
-    pgrad = torch.zeros((cfg.pad_cap, NF), dtype=torch.float32, device=packed.device)
+    # the kernel writes every row, the rows of chunks no tile reaches as 0
+    pgrad = torch.empty((cfg.pad_cap, NF), dtype=torch.float32, device=packed.device)
+    _launch_stream_bwd(cfg, st_starts, st_starts_al, packed, fwd_out.contiguous(),
+                       gout.contiguous(), pgrad, tile_offset)
+    return pgrad
+
+
+def _launch_stream_bwd(cfg: StreamCfg, st_starts, st_starts_al, packed, fwd_out, gout,
+                       pgrad, tile_offset=0):
+    """One launch of the backward kernel on checked, contiguous CUDA
+    tensors into ``pgrad`` [pad_cap, NF] (every row written), counted in
+    ``cuda_build.launch_counts``; raises if the launch is refused."""
     lib = cuda_build.library("stream_bwd")
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.stream_bwd(
             st_starts.data_ptr(), st_starts_al.data_ptr(), packed.data_ptr(),
             fwd_out.data_ptr(), gout.data_ptr(), pgrad.data_ptr(),
-            cfg.cs, cfg.sw, cfg.sh, cfg.tw, int(tile_offset), int(cfg.wrap_x),
-            float(cfg.width), _inv_width(cfg), int(cfg.absgrad), stream)
+            cfg.cs, cfg.pad_cap, cfg.sw, cfg.sh, cfg.tw, int(tile_offset),
+            int(cfg.wrap_x), float(cfg.width), _inv_width(cfg), int(cfg.absgrad), stream)
     cuda_build.check(lib, rc, "stream_bwd")
     cuda_build.launch_counts["stream_bwd"] += 1
-    return pgrad
 
 
 class _StreamComposite(torch.autograd.Function):

@@ -290,7 +290,7 @@ def tile_bwd_plain(cfg: RasterCfg, starts: torch.Tensor, packed: torch.Tensor,
 def tile_bwd(cfg: RasterCfg, starts: torch.Tensor, packed: torch.Tensor,
              fwd_out: torch.Tensor, gout: torch.Tensor, tile_offset: int = 0) -> torch.Tensor:
     """Backward compositing -> per-slot gradient rows [align_cap, NF] f32
-    (``GROW_*`` columns; rows of chunks no tile replayed stay 0).
+    (``GROW_*`` columns; rows of chunks no tile replayed are 0).
 
     ``fwd_out`` is the forward's output (its n_chunks channel sets how far
     each tile replays), ``gout`` the cotangent of it, ``tile_offset`` as for
@@ -300,18 +300,25 @@ def tile_bwd(cfg: RasterCfg, starts: torch.Tensor, packed: torch.Tensor,
         return tile_bwd_plain(cfg, starts, packed, fwd_out, gout, tile_offset)
     starts, packed, fwd_out, gout = _check_kernel_inputs(
         "tile_bwd", cfg, starts, packed, fwd_out, gout, tile_offset=tile_offset)
-    # rows of chunks no tile replays must read 0 for the reduction
-    pgrad = torch.zeros((cfg.align_cap, NF), dtype=torch.float32, device=packed.device)
+    # the kernel writes every row, the rows of chunks no tile replays as 0
+    pgrad = torch.empty((cfg.align_cap, NF), dtype=torch.float32, device=packed.device)
+    _launch_tile_bwd(cfg, starts, packed, fwd_out, gout, pgrad, tile_offset)
+    return pgrad
+
+
+def _launch_tile_bwd(cfg: RasterCfg, starts, packed, fwd_out, gout, pgrad, tile_offset=0):
+    """One launch of the backward kernel on checked, contiguous CUDA
+    tensors into ``pgrad`` [align_cap, NF] (every row written), counted in
+    ``cuda_build.launch_counts``; raises if the launch is refused."""
     lib = cuda_build.library("tile_bwd")
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.tile_bwd(starts.data_ptr(), packed.data_ptr(), fwd_out.data_ptr(),
-                          gout.data_ptr(), pgrad.data_ptr(), cfg.ct, cfg.tw,
-                          cfg.tw * cfg.th, int(tile_offset), int(cfg.wrap_x),
+                          gout.data_ptr(), pgrad.data_ptr(), cfg.ct, cfg.align_cap,
+                          cfg.tw, cfg.tw * cfg.th, int(tile_offset), int(cfg.wrap_x),
                           float(cfg.width), _inv_width(cfg), stream)
     cuda_build.check(lib, rc, "tile_bwd")
     cuda_build.launch_counts["tile_bwd"] += 1
-    return pgrad
 
 
 class _TileComposite(torch.autograd.Function):

@@ -42,9 +42,9 @@ SIGNATURES = {
     # st_starts, packed, out, cs, sw, sh, tw, st_offset, wrap_x, width,
     # inv_width, term_thresh, stream
     "stream_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
-    # st_starts, st_starts_al, packed, fwd_out, gout, pgrad, cs, sw, sh, tw,
-    # st_offset, wrap_x, width, inv_width, absgrad, stream
-    "stream_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    # st_starts, st_starts_al, packed, fwd_out, gout, pgrad, cs, pad_cap, sw,
+    # sh, tw, st_offset, wrap_x, width, inv_width, absgrad, stream
+    "stream_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     # rows, perm, bounds, out_index (or NULL), out, m0, n_payload, stream
     "seg_reduce": [_P, _P, _P, _P, _P, _I, _I, _P],
     # rows, cap, m0, cnt_n, tot, list, perm_u, perm, bounds, stream
@@ -52,9 +52,9 @@ SIGNATURES = {
     # starts, packed, out, ct, tw, tiles_per_cam, tile_offset, wrap_x, width,
     # inv_width, term_thresh, stream
     "tile_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P],
-    # starts, packed, fwd_out, gout, pgrad, ct, tw, tiles_per_cam, tile_offset,
-    # wrap_x, width, inv_width, stream
-    "tile_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    # starts, packed, fwd_out, gout, pgrad, ct, align_cap, tw, tiles_per_cam,
+    # tile_offset, wrap_x, width, inv_width, stream
+    "tile_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     # pbases, offs_pad, sx0, sy0, span, ka, depth, key, g, nb, mp, slab,
     # exp_cap, n, sw, ns, cs, st_lo, wrap, segmented, stream
     "seg_broadcast": [_P] * 9 + [_I] * 11 + [_P],

@@ -12,9 +12,10 @@
   relative of each column's max, because the JAX CPU path splits f32 into
   two bf16 parts (``NSPLIT = 2``, ``seg_reduce.py:48``).
 - The CUDA kernels against their plain versions (``gpu`` marker, run on
-  the card with ``--noconftest``): the key column exactly, the gradient
-  columns within 1e-5 * max(1, |ref|) (the kernels add in the plain
-  versions' order; only expf and division rounding could differ).
+  the card with ``--noconftest``): every row equal (the kernels add in
+  the plain versions' order and divide as IEEE division rounds), also
+  when launched into a buffer of NaNs, so that the kernel writes every
+  row itself.
 """
 
 import dataclasses
@@ -170,7 +171,11 @@ def test_cuda_backward_matches_plain(case, absgrad):
     torch.cuda.synchronize()
     assert torch.equal(pg_k[:, tsi.GCOL_KEY:], pg_p[:, tsi.GCOL_KEY:])
     err = (pg_k - pg_p).abs().max(0).values
-    assert (err <= 1e-5 * torch.clamp(pg_p.abs().max(0).values, min=1.0)).all(), err
+    assert torch.equal(pg_k, pg_p), err
+    # launched into NaNs, the kernel leaves none: it writes every row
+    nan = torch.full_like(pg_p, float("nan"))
+    tsr._launch_stream_bwd(cfg, st, isect.st_starts_al, packed, out, gout, nan)
+    assert torch.equal(nan, pg_p)
 
 
 @pytest.mark.gpu

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import crowded_spherical_scene, deep_stack_scene
+from chip_smoke import bench_scene, crowded_spherical_scene, deep_stack_scene
 from splat_one_tpu_torch.ops import projection as tp
 from splat_one_tpu_torch.ops import stream_isect as tsi
 from splat_one_tpu_torch.ops import stream_raster as tsr
@@ -61,16 +61,26 @@ def _crowded_scene():
     return _as_tuple(crowded_spherical_scene())
 
 
+def _bench_spherical_scene():
+    """chip_smoke.py's bench scene at 100k gaussians, 640x320, for the
+    spherical camera of its phase 4 (colours from the SH DC term), as
+    ``_scene``'s tuple."""
+    sc = bench_scene(100_000, 640, 320, 500.0, -5.5, -4.0, seed=1)
+    return _as_tuple(dict(sc, colors=np.clip(sc["sh"][:, 0] + 0.5, 0.0, 1.0)))
+
+
 CASES = {
     "pinhole": (dict(), "pinhole"),
     "spherical": (dict(spherical=True), "spherical"),
     "edge-partial": (dict(n=200, c=1, w=40, h=24), "pinhole"),
 }
 # the gpu tests of the kernels: (a function making the scene, camera model)
-# for each of CASES, the deep-stack scene and the crowded spherical scene
+# for each of CASES, the deep-stack scene, the crowded spherical scene and
+# a spherical view of the bench scene
 GPU_CASES = {k: (functools.partial(_scene, **kw), m) for k, (kw, m) in CASES.items()}
 GPU_CASES["deep-stack"] = (_deep_stack_scene, "pinhole")
 GPU_CASES["crowded-spherical"] = (_crowded_scene, "spherical")
+GPU_CASES["bench-spherical"] = (_bench_spherical_scene, "spherical")
 # the forward's parity against the JAX kernel: CASES and the crowded scene
 FWD_CASES = {k: GPU_CASES[k] for k in (*CASES, "crowded-spherical")}
 
