@@ -1,0 +1,9 @@
+"""Device ms a traced request of the device operations enqueued while a
+projection span (``benchmark.spans.LAYER``) was the innermost open on the
+host. Reads ``projection_ms.<anything>``."""
+
+from benchmark import spans as S
+
+
+def read(ctx):
+    return S.device_ms(ctx, "projection")

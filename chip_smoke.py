@@ -217,8 +217,8 @@ Phases (any failure exits non-zero and prints no result line):
      one forward + backward at full width (ALIKED desc_dim 128 on a
      1024x768 image; the official LightGlue 256 wide, 9 layers, 2,048
      keypoints a side): ms and peak memory; (b) utils.profiling:
-     device_timer on phase 4's pinhole request beside phase 4's median,
-     trace writing a trace file that names the stream_fwd kernel,
+     trace writing a trace file that names the stream_fwd kernel and
+     holds the request's spans,
      memory_stats' peak equal to max_memory_allocated, Trainer.eval's
      mem the largest peak; (c) the mask UI over HTTP on localhost: SAM 2.1
      on phase 10's random_checkpoint .npz on a 1024x1024 view, /predict
@@ -4643,7 +4643,7 @@ def training_tiers(dev, card):
                 grad_err=(e_a, e_l), full=(ms_a, peak_a, ms_l, peak_l))
 
 
-def profiling_part(dev, card, sc, request_ms, tmp):
+def profiling_part(dev, card, sc, tmp):
     """Phase 11b: utils/profiling on phase 4's request, and Trainer.eval's
     ``mem``."""
     import glob
@@ -4664,10 +4664,6 @@ def profiling_part(dev, card, sc, request_ms, tmp):
     fn = make_render_fn(params, alive, W, H, sh_degree=SH_SERVE, camera_model="pinhole",
                         device=dev)
     c2w, K = yaw_pose(0.0), sc["Ks"][0]
-    s = PR.device_timer(fn.render, c2w, K, "pinhole", iters=10)
-    log(f"  device_timer (CUDA events around 10 requests, after a warm one): {s * 1e3:.3f} ms "
-        f"a request; phase 4's median (host clock, synchronized) {request_ms:.3f} ms | {card}")
-    require(s > 0, "device_timer")
     tdir = os.path.join(tmp, "trace")
     with PR.trace(tdir):
         fn.render(c2w, K, "pinhole")
@@ -4678,10 +4674,12 @@ def profiling_part(dev, card, sc, request_ms, tmp):
         events = json.load(fh)["traceEvents"]
     kernels = {e.get("name", "") for e in events if str(e.get("cat", "")).lower() == "kernel"}
     fwd = sorted(k for k in kernels if "stream_fwd" in k)
+    rows = sorted({e["name"] for e in events if e.get("cat") == "span"})
     log(f"  trace: {os.path.basename(files[0])} ({os.path.getsize(files[0]) / 2**20:.1f} MiB, "
         f"{len(events)} events, {len(kernels)} kernel names), the forward kernel as "
-        f"{fwd[0][:80] if fwd else None!r} | {card}")
+        f"{fwd[0][:80] if fwd else None!r}; spans {rows} | {card}")
     require(bool(fwd), "the trace names no stream_fwd kernel")
+    require("render.composite" in rows, "the trace holds no program spans")
     _sync()
     ms = PR.memory_stats()
     want = torch.cuda.max_memory_allocated(0) / 2**30 if dev.type == "cuda" else None
@@ -4702,7 +4700,7 @@ def profiling_part(dev, card, sc, request_ms, tmp):
         f"stream_fwd launches {cuda_build.launch_counts.get('stream_fwd', 0)} | {card}")
     require(stats.get("mem") is not None and stats["mem"] == max(peaks),
             f"Trainer.eval's mem {stats.get('mem')} against memory_stats {peaks}")
-    return dict(device_timer_ms=s * 1e3, mem=stats.get("mem"))
+    return dict(mem=stats.get("mem"))
 
 
 def _http(url, spec=None, timeout=120):
@@ -4897,12 +4895,12 @@ def video_part(dev, card, tmp):
     return len(frames)
 
 
-def app_shell_phase(dev, card, sc, request_ms, tmp, sam_npz):
+def app_shell_phase(dev, card, sc, tmp, sam_npz):
     """Phase 11 (see the module docstring)."""
     t_phase = time.perf_counter()
     out, walls = {}, {}
     for part, fn in (("a", lambda: training_tiers(dev, card)),
-                     ("b", lambda: profiling_part(dev, card, sc, request_ms, tmp)),
+                     ("b", lambda: profiling_part(dev, card, sc, tmp)),
                      ("c", lambda: mask_ui_part(dev, card, tmp, sam_npz)),
                      ("d, e", lambda: live_viewer_and_shell(dev, card, tmp)),
                      ("f", lambda: video_part(dev, card, tmp))):
@@ -5170,7 +5168,7 @@ def main():
     try:
         md = masks_depth_phase(dev, card, scenes, sc, tmp)
         _empty_cache()
-        app_shell_phase(dev, card, sc, req_ms["pinhole front"], tmp, md["b"][0])
+        app_shell_phase(dev, card, sc, tmp, md["b"][0])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     kernels = [dict(fwd_row, launches=rows["launches"].get("stream_fwd", 0),

@@ -29,6 +29,7 @@ from splat_one_tpu_torch.render.rasterization import rasterization
 from splat_one_tpu_torch.train.config import Config
 from splat_one_tpu_torch.train.trainer import Trainer
 from splat_one_tpu_torch.utils.device import resolve as resolve_device
+from splat_one_tpu_torch.utils.profiling import span
 
 _PAGE = """<!DOCTYPE html>
 <html><head><title>splat-one-tpu viewer</title>
@@ -187,7 +188,9 @@ def load_checkpoint_params(path: str, device="cuda"):
 class Renderer:
     """Single-view renders of fixed splat parameters: the port's serving
     function. Calling it returns the uint8 image ``ViewerServer`` serves;
-    ``render`` returns the float rgb and expected depth."""
+    ``render`` returns the float rgb and expected depth. A call is the
+    span ``viewer.request`` (``utils.profiling``), with ``viewer.inputs``,
+    ``rasterization``'s spans and ``viewer.frame`` inside."""
 
     def __init__(self, params, alive, width, height, sh_degree=3,
                  camera_model="pinhole", device="cuda"):
@@ -212,11 +215,13 @@ class Renderer:
     def render(self, c2w, K, camera_model=None):
         """c2w [4, 4] and K [3, 3] (numpy or tensors) -> (rgb [H, W, 3],
         expected depth [H, W, 1], alpha [H, W, 1], info) on the device."""
-        c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=self.device)
-        K = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
+        with span("viewer.inputs"):
+            c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=self.device)
+            K = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
+            viewmats = invert_se3(c2w[None])
         out, alpha, info = rasterization(
             self.means, self.quats, self.scales, self.opacities, self.colors,
-            invert_se3(c2w[None]), K[None], self.width, self.height,
+            viewmats, K[None], self.width, self.height,
             sh_degree=self.sh_degree,
             camera_model=camera_model or self.camera_model,
             render_mode="RGB+ED",
@@ -224,8 +229,10 @@ class Renderer:
         return out[0, ..., :3], out[0, ..., 3:], alpha[0], info
 
     def __call__(self, c2w, K, camera_model=None) -> np.ndarray:
-        rgb = self.render(c2w, K, camera_model)[0]
-        return (torch.clamp(rgb, 0, 1) * 255).to(torch.uint8).cpu().numpy()
+        with span("viewer.request"):
+            rgb = self.render(c2w, K, camera_model)[0]
+            with span("viewer.frame"):
+                return (torch.clamp(rgb, 0, 1) * 255).to(torch.uint8).cpu().numpy()
 
 
 def make_render_fn(params, alive, width, height, sh_degree=3,

@@ -42,6 +42,7 @@ from splat_one_tpu_torch.ops import stream_isect as si
 from splat_one_tpu_torch.ops.reference import ALPHA_MAX, ALPHA_MIN
 from splat_one_tpu_torch.ops.stream_isect import NF, SS, StreamCaps, StreamIsect
 from splat_one_tpu_torch.utils import cuda_build
+from splat_one_tpu_torch.utils.profiling import span
 
 OUT_CH = 8  # r, g, b, alpha, depth, n_chunks, pad, pad
 CH_NCHUNKS = 5
@@ -465,9 +466,10 @@ class _StreamComposite(torch.autograd.Function):
                 depths, radii, abs_dummy):
         if cfg.absgrad != (abs_dummy is not None):
             raise ValueError("cfg.absgrad must be set exactly when abs_dummy is passed")
-        fields = si.build_field_columns(means2d, conics, opacities, colors,
-                                        depths, radii)
-        packed = si.pack_stream(fields, isect, cfg.caps)
+        with span("build.pack"):
+            fields = si.build_field_columns(means2d, conics, opacities, colors,
+                                            depths, radii)
+            packed = si.pack_stream(fields, isect, cfg.caps)
         out = stream_fwd(cfg, isect.st_starts, packed, tile_offset)
         ctx.cfg = cfg
         ctx.tile_offset = tile_offset

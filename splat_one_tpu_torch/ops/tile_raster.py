@@ -41,6 +41,7 @@ from splat_one_tpu_torch.ops.intersect import NF, IsectData
 from splat_one_tpu_torch.ops.reference import ALPHA_MAX, ALPHA_MIN
 from splat_one_tpu_torch.ops.stream_raster import TERM_THRESH, _inv_width, warp_sum
 from splat_one_tpu_torch.utils import cuda_build
+from splat_one_tpu_torch.utils.profiling import span
 
 OUT_CH = 8  # r, g, b, alpha, depth, n_chunks, pad, pad
 CH_NCHUNKS = 5
@@ -329,8 +330,9 @@ class _TileComposite(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cfg, isect, tile_offset, means2d, conics, colors, opacities,
                 depths, abs_dummy):
-        packed = isect_mod.pack_fields(means2d, conics, colors, opacities,
-                                       depths, isect)
+        with span("build.pack"):
+            packed = isect_mod.pack_fields(means2d, conics, colors, opacities,
+                                           depths, isect)
         out = tile_fwd(cfg, isect.tile_starts, packed, tile_offset)
         ctx.cfg = cfg
         ctx.tile_offset = tile_offset

@@ -19,6 +19,11 @@ projection (of this rank's gaussian shard) to the gathered one
 splits the (camera, supertile) grid into ``n`` slabs: this rank builds
 and composites only its own (``composite_slab``), and the slabs are
 gathered into the image (``parallel.comm.gather_slabs``).
+
+Each stage runs inside a span of ``utils.profiling`` (recorded only while
+a torch profiler runs): ``render`` around the whole call,
+``render.project``, ``render.build`` (counts ``exp_cap`` and
+``n_isect``), ``render.composite`` and ``render.assemble``.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from splat_one_tpu_torch.ops.stream_isect import StreamCaps
 from splat_one_tpu_torch.ops.stream_raster import StreamCfg
 from splat_one_tpu_torch.ops.tile_raster import RasterCfg
 from splat_one_tpu_torch.parallel import comm
+from splat_one_tpu_torch.utils.profiling import count, span
 
 
 def slab_cfg(caps: StreamCaps, width: int, height: int, tile_size: int, C: int, N: int,
@@ -69,13 +75,22 @@ def composite_slab(proj: Projected, i: int, n: int, width: int, height: int,
                                 absgrad=absgrad_dummy is not None)
     st_lo = i * cs_local
     proj_sg = Projected(*(x.detach() for x in proj))
-    isect = si_mod.build_stream_intersections(
-        proj_sg, width, height, tile_size, caps, camera_model=camera_model,
-        st_lo=st_lo, n_st_local=cs_local)
-    out = stream_raster.composite_stream(
-        cfg, proj.means2d, proj.conics, proj.colors, proj.opacities, proj.depths,
-        proj_sg.radii, isect, abs_dummy=absgrad_dummy, tile_offset=st_lo)
+    with span("render.build"):
+        isect = si_mod.build_stream_intersections(
+            proj_sg, width, height, tile_size, caps, camera_model=camera_model,
+            st_lo=st_lo, n_st_local=cs_local)
+        _count_isect(caps, isect)
+    with span("render.composite"):
+        out = stream_raster.composite_stream(
+            cfg, proj.means2d, proj.conics, proj.colors, proj.opacities, proj.depths,
+            proj_sg.radii, isect, abs_dummy=absgrad_dummy, tile_offset=st_lo)
     return out, isect
+
+
+def _count_isect(caps, isect):
+    """The build's counts: the keys it sorts and the intersections among them."""
+    count("exp_cap", caps.exp_cap)
+    count("n_isect", isect.n_isect)
 
 
 def rasterization(
@@ -138,88 +153,99 @@ def rasterization(
     if st_shard is not None and impl != "stream":
         raise ValueError("st_shard needs impl='stream'")
 
-    N = means.shape[0]
-    C = viewmats.shape[0]
-    sh = colors if sh_degree is not None else None
-    flat_colors = colors if sh_degree is None else None
-    proj = project_gaussians(
-        means, quats, scales, opacities, viewmats, Ks, width, height,
-        sh_coeffs=sh, sh_degree=(sh_degree or 0), colors=flat_colors,
-        camera_model=camera_model, near_plane=near_plane, far_plane=far_plane,
-        radius_clip=radius_clip,
-        antialiased=(rasterize_mode == "antialiased"), alive=alive,
-    )
-    if means2d_dummy is not None:
-        proj = proj._replace(means2d=proj.means2d + means2d_dummy)
-    radii_local = proj.radii.detach()
-    if proj_transform is not None:
-        proj = proj_transform(proj)
-        N = proj.means2d.shape[1]  # the gathered gaussian count
-    # the layout is integer bookkeeping: built from a detached projection
-    proj_sg = Projected(*(x.detach() for x in proj))
-    wrap = camera_model == "spherical"
-    if impl == "stream":
-        if not isinstance(caps, StreamCaps):
-            _, _, sgw, sgh = si_mod.supertile_grid(width, height, tile_size)
-            caps = StreamCaps.choose(N, C, C * sgw * sgh)
-        if st_shard is not None:
-            group, n = st_shard
-            out, isect = composite_slab(proj, dist.get_rank(group), n, width, height,
-                                        tile_size, caps, camera_model, absgrad_dummy)
-            cfg, _, cs_global = slab_cfg(caps, width, height, tile_size, C, N, n,
-                                         camera_model)
-            out = comm.gather_slabs(out, group, cs_global)
-            cfg = dataclasses.replace(cfg, cs_local=0)
+    with span("render"):
+        N = means.shape[0]
+        C = viewmats.shape[0]
+        sh = colors if sh_degree is not None else None
+        flat_colors = colors if sh_degree is None else None
+        with span("render.project"):
+            count("rows", N)
+            proj = project_gaussians(
+                means, quats, scales, opacities, viewmats, Ks, width, height,
+                sh_coeffs=sh, sh_degree=(sh_degree or 0), colors=flat_colors,
+                camera_model=camera_model, near_plane=near_plane, far_plane=far_plane,
+                radius_clip=radius_clip,
+                antialiased=(rasterize_mode == "antialiased"), alive=alive,
+            )
+        if means2d_dummy is not None:
+            proj = proj._replace(means2d=proj.means2d + means2d_dummy)
+        radii_local = proj.radii.detach()
+        if proj_transform is not None:
+            proj = proj_transform(proj)
+            N = proj.means2d.shape[1]  # the gathered gaussian count
+        # the layout is integer bookkeeping: built from a detached projection
+        proj_sg = Projected(*(x.detach() for x in proj))
+        wrap = camera_model == "spherical"
+        if impl == "stream":
+            if not isinstance(caps, StreamCaps):
+                _, _, sgw, sgh = si_mod.supertile_grid(width, height, tile_size)
+                caps = StreamCaps.choose(N, C, C * sgw * sgh)
+            if st_shard is not None:
+                group, n = st_shard
+                out, isect = composite_slab(proj, dist.get_rank(group), n, width, height,
+                                            tile_size, caps, camera_model, absgrad_dummy)
+                cfg, _, cs_global = slab_cfg(caps, width, height, tile_size, C, N, n,
+                                             camera_model)
+                out = comm.gather_slabs(out, group, cs_global)
+                cfg = dataclasses.replace(cfg, cs_local=0)
+            else:
+                cfg = StreamCfg.from_caps(caps, width, height, tile_size, C, N, wrap_x=wrap,
+                                          absgrad=(absgrad_dummy is not None))
+                with span("render.build"):
+                    isect = si_mod.build_stream_intersections(
+                        proj_sg, width, height, tile_size, caps, camera_model=camera_model)
+                    _count_isect(caps, isect)
+                with span("render.composite"):
+                    out = stream_raster.composite_stream(
+                        cfg, proj.means2d, proj.conics, proj.colors, proj.opacities,
+                        proj.depths, proj_sg.radii, isect, abs_dummy=absgrad_dummy)
+            to_image = stream_raster.stream_to_image
         else:
-            cfg = StreamCfg.from_caps(caps, width, height, tile_size, C, N, wrap_x=wrap,
-                                      absgrad=(absgrad_dummy is not None))
-            isect = si_mod.build_stream_intersections(
-                proj_sg, width, height, tile_size, caps, camera_model=camera_model)
-            out = stream_raster.composite_stream(
-                cfg, proj.means2d, proj.conics, proj.colors, proj.opacities,
-                proj.depths, proj_sg.radii, isect, abs_dummy=absgrad_dummy)
-        rgb, alpha, depth = stream_raster.stream_to_image(cfg, out)
-    else:
-        if not isinstance(caps, IsectCaps):
-            tw = -(-width // tile_size)
-            th = -(-height // tile_size)
-            caps = IsectCaps.choose(N, C, tw * th)
-        cfg = RasterCfg(width=width, height=height, tile_size=tile_size,
-                        num_cameras=C, num_gaussians=N, chunk=caps.chunk,
-                        align_cap=caps.align_cap, wrap_x=wrap)
-        isect = isect_mod.build_intersections(
-            proj_sg, width, height, tile_size, caps, camera_model=camera_model)
-        out = tile_raster.composite_tiles(
-            cfg, proj.means2d, proj.conics, proj.colors, proj.opacities,
-            proj.depths, isect, abs_dummy=absgrad_dummy)
-        rgb, alpha, depth = tile_raster.tiles_to_image(cfg, out)
+            if not isinstance(caps, IsectCaps):
+                tw = -(-width // tile_size)
+                th = -(-height // tile_size)
+                caps = IsectCaps.choose(N, C, tw * th)
+            cfg = RasterCfg(width=width, height=height, tile_size=tile_size,
+                            num_cameras=C, num_gaussians=N, chunk=caps.chunk,
+                            align_cap=caps.align_cap, wrap_x=wrap)
+            with span("render.build"):
+                isect = isect_mod.build_intersections(
+                    proj_sg, width, height, tile_size, caps, camera_model=camera_model)
+                _count_isect(caps, isect)
+            with span("render.composite"):
+                out = tile_raster.composite_tiles(
+                    cfg, proj.means2d, proj.conics, proj.colors, proj.opacities,
+                    proj.depths, isect, abs_dummy=absgrad_dummy)
+            to_image = tile_raster.tiles_to_image
 
-    if backgrounds is not None:
-        rgb = rgb + (1.0 - alpha) * backgrounds[:, None, None, :]
-    if "ED" in render_mode:
-        # expected depth (gsplat ED): accumulated depth / alpha
-        depth = depth / torch.clamp(alpha, min=1e-10)
-    if render_mode == "RGB":
-        render = rgb
-    elif render_mode in ("RGB+ED", "RGB+D"):
-        render = torch.cat([rgb, depth], dim=-1)
-    else:
-        render = depth
+        with span("render.assemble"):
+            rgb, alpha, depth = to_image(cfg, out)
+            if backgrounds is not None:
+                rgb = rgb + (1.0 - alpha) * backgrounds[:, None, None, :]
+            if "ED" in render_mode:
+                # expected depth (gsplat ED): accumulated depth / alpha
+                depth = depth / torch.clamp(alpha, min=1e-10)
+            if render_mode == "RGB":
+                render = rgb
+            elif render_mode in ("RGB+ED", "RGB+D"):
+                render = torch.cat([rgb, depth], dim=-1)
+            else:
+                render = depth
 
-    n_isect, overflow = isect.n_isect, isect.overflow
-    if st_shard is not None:
-        # growth follows the fullest slab; overflow anywhere is everyone's
-        n_isect = comm.pmax(n_isect, st_shard[0])
-        overflow = comm.psum(overflow.int(), st_shard[0]) > 0
-    info = {
-        "radii": proj_sg.radii,
-        "radii_local": radii_local,
-        "depths": proj.depths,
-        "valid": proj.valid,
-        "n_isect": n_isect,
-        "overflow": overflow,
-        "width": width,
-        "height": height,
-        "n_cameras": C,
-    }
-    return render, alpha, info
+        n_isect, overflow = isect.n_isect, isect.overflow
+        if st_shard is not None:
+            # growth follows the fullest slab; overflow anywhere is everyone's
+            n_isect = comm.pmax(n_isect, st_shard[0])
+            overflow = comm.psum(overflow.int(), st_shard[0]) > 0
+        info = {
+            "radii": proj_sg.radii,
+            "radii_local": radii_local,
+            "depths": proj.depths,
+            "valid": proj.valid,
+            "n_isect": n_isect,
+            "overflow": overflow,
+            "width": width,
+            "height": height,
+            "n_cameras": C,
+        }
+        return render, alpha, info
