@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
   2. build: compile every kernel in splat_one_tpu_torch/csrc (nvcc,
      sm_90a, one process per source, all at once), timed, with ptxas
      register, shared-memory and spill figures per kernel; the forward
-     and backward compositing kernels must not spill; the backward
+     and backward compositing kernels and the projection kernel must not
+     spill; the backward
      kernels' resident blocks per SM (from those figures and their
      launches' threads and shared memory);
   3. kernels vs plain versions on the card: small pinhole, spherical,
@@ -39,6 +40,18 @@ Phases (any failure exits non-zero and prints no result line):
      front and spherical, against the stream render: layer split, the
      tiled forward kernel vs its plain version, time and bound at both
      poses, memory;
+     (4c) the projection kernel (csrc/project_fwd.cu) against the plain
+     project_gaussians_plain: a small scene through the four camera
+     models, both antialiased values, SH degrees 0-4 (rows staged by
+     chunks and not), flat colours, C = 2 and an alive mask, then
+     viewer models at 3DGS's garden (2^23 rows, pinhole 1297x840) and
+     room (2^21 rows, spherical 1557x1038) sizes, made here, SH degree 3,
+     pruned rows and the zero rows at the origin: every field but the
+     colours bit for bit the plain version's, colours within
+     PROJ_COLOR_ATOL; at both sizes the kernel's time (CUDA events)
+     beside its byte bound (with every row's SH, and with the valid
+     rows' alone) and the plain version's time; a viewer request
+     launches it once;
   5. training at full width: (a) bench.py's fwd+bwd step on the same
      scene (loss sum(render) + sum(alpha), gradients into all five
      inputs): step time, Mpix/s, per-layer times, device trace, peak
@@ -279,7 +292,8 @@ TRAIN_CAPACITY = 1_048_576  # the Trainers' splat buffers (phases 5b, 5c)
 TILED_STEPS = 4  # phase 5c
 WD_SHOTS, WD_STEPS = 24, 40  # phase 5e: the workdir's shots, train_splats' steps
 REL_RENDER, REL_GRAD = 1e-5, 5e-4  # stream vs tiled (tests/test_stream_raster.py)
-NO_SPILL = ("stream_fwd", "stream_bwd", "tile_fwd", "tile_bwd")  # held to 0 B of spill
+NO_SPILL = ("stream_fwd", "stream_bwd", "tile_fwd", "tile_bwd",  # held to 0 B of spill
+            "project_fwd")
 
 
 _T0 = time.perf_counter()
@@ -1007,6 +1021,198 @@ def device_trace(fn, iters):
     busy += cur_e - cur_s
     window = max(e for _, e in spans) - spans[0][0]
     return len(spans) / iters, busy / iters / 1e3, 1.0 - busy / window, top
+
+
+# ------------------------------------------------ phase 4c: the projection
+# the kernel's colours against the plain version's: the SH sums run in
+# another order (k ascending against cuBLAS's batched gemv), a few ulp
+PROJ_COLOR_ATOL = 2e-6
+# phase 4c's large part, the viewer's models at 3DGS's sizes: name, camera
+# model, W, H, focal, buffer rows, live rows, pruned rows, the scene's
+# extent (central ball, ground disc, far shell from / to; metres), camera
+PROJ_SIZES = (
+    ("garden", "pinhole", 1297, 840, 1160.0, 2**23, 5_800_000, 290_000,
+     (0.8, 8.0, 10.0, 25.0), (0.0, -1.6, -4.0)),
+    ("room", "spherical", 1557, 1038, 1500.0, 2**21, 1_500_000, 75_000,
+     (1.0, 4.0, 3.0, 4.5), (0.3, -0.2, 0.5)),
+)
+
+
+def projection_scene(dev, n=4000, seed=0):
+    """Rows around two cameras (C = 2), some behind them, a few at the
+    origin (the zero rows), 25 SH coefficients a row, an alive mask."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    means = (d / np.linalg.norm(d, axis=-1, keepdims=True)
+             * rng.uniform(0.5, 4.0, (n, 1))).astype(np.float32)
+    means[: n // 2, 2] = np.abs(means[: n // 2, 2]) + 1.0
+    means[-40:] = 0.0
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    quats[-40:] = 0.0
+    scales = np.exp(rng.uniform(-4.0, -1.0, (n, 3))).astype(np.float32)
+    opac = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    sh = (rng.normal(size=(n, 25, 3)) * 0.3).astype(np.float32)
+    viewmats = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    viewmats[1, :3, :3] = [[0.8, 0.0, 0.6], [0.0, 1.0, 0.0], [-0.6, 0.0, 0.8]]
+    viewmats[1, :3, 3] = [0.3, -0.2, 0.5]
+    Ks = np.tile(np.float32([[300.0, 0, 160], [0, 290.0, 120], [0, 0, 1]]), (2, 1, 1))
+    t = lambda x: torch.as_tensor(x, device=dev)
+    return dict(means=t(means), quats=t(quats), scales=t(scales), opac=t(opac), sh=t(sh),
+                viewmats=t(viewmats), Ks=t(Ks), alive=t(rng.uniform(size=n) > 0.1),
+                colors=t(rng.uniform(size=(n, 3)).astype(np.float32)))
+
+
+def viewer_model(dev, cap, n_live, n_pruned, extent, seed=0):
+    """(params, alive) of a grown viewer's buffer, made on the card: the
+    live and pruned rows (``alive`` False) interleaved, a quarter in a
+    central ball, 40 % on a ground disc, the rest on a far shell, with
+    log-normal scales and half the gaussians near-opaque; past them the
+    zero rows a grown buffer holds (every field 0: at the origin). SH
+    degree 3 (16 coefficients a row)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)
+    rand = lambda *s: torch.rand(s, generator=g, device=dev)
+    ball, disc, lo, hi = extent
+    used = n_live + n_pruned
+    n_ball, n_disc = used // 4, used * 2 // 5
+    n_shell = used - n_ball - n_disc
+    d = randn(n_ball, 3)
+    pts_ball = d / d.norm(dim=1, keepdim=True) * ball * rand(n_ball, 1) ** (1 / 3)
+    r, a = disc * rand(n_disc).sqrt(), 2 * np.pi * rand(n_disc)
+    pts_disc = torch.stack([r * torch.cos(a), 1.0 + 0.03 * randn(n_disc), r * torch.sin(a)], 1)
+    d = randn(n_shell, 3)
+    pts_shell = d / d.norm(dim=1, keepdim=True) * (lo + (hi - lo) * rand(n_shell, 1))
+    order = torch.randperm(used, generator=g, device=dev)
+    rows = {"means": torch.cat([pts_ball, pts_disc, pts_shell]),
+            "quats": randn(used, 4),
+            "scales": -4.0 + 0.5 * randn(used, 1) + 0.35 * randn(used, 3),
+            "opacities": torch.where(rand(used) < 0.5, 3.5 + 1.5 * randn(used),
+                                     -2.5 + 1.5 * randn(used)),
+            "sh0": ((rand(used, 1, 3) * 0.8 + 0.1) - 0.5) / 0.28209479177387814,
+            "shN": 0.05 * randn(used, 15, 3)}
+    params = {}
+    for k, x in rows.items():
+        params[k] = torch.zeros((cap,) + tuple(x.shape[1:]), device=dev)
+        params[k][:used] = x[order]
+    alive = torch.zeros(cap, dtype=torch.bool, device=dev)
+    alive[:used] = order < n_live
+    return params, alive
+
+
+def projection_diffs(got, want):
+    """Unequal elements of each field (floats by their bits), the colours'
+    largest absolute difference."""
+    import torch
+
+    ne = {}
+    for name, a, b in zip(got._fields, got, want):
+        if a.dtype == torch.float32:
+            a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+        ne[name] = int((a != b).sum())
+    return ne, float((got.colors - want.colors).abs().max()) if got.colors.numel() else 0.0
+
+
+def projection_phase(dev, card):
+    """Phase 4c: the projection kernel against the plain version, small
+    and at the viewer's sizes; the kernel's row of the kernels line."""
+    import torch
+
+    from splat_one_tpu_torch.app.viewer import Renderer
+    from splat_one_tpu_torch.core.transforms import invert_se3
+    from splat_one_tpu_torch.ops.projection import project_gaussians, project_gaussians_plain
+    from splat_one_tpu_torch.utils import cuda_build
+
+    log(f"phase 4c: the projection kernel vs project_gaussians_plain | {card}")
+    ps = projection_scene(dev)
+    geo = (ps["means"], ps["quats"], ps["scales"], ps["opac"], ps["viewmats"], ps["Ks"])
+    worst = {"unequal": {}, "colors": 0.0}
+
+    def check(name, got, want):
+        ne, ce = projection_diffs(got, want)
+        differ = {k: v for k, v in ne.items() if v and k != "colors"}
+        require(not differ, f"{name}: fields not bit for bit the plain version's: {differ}")
+        require(ce <= PROJ_COLOR_ATOL, f"{name}: colours differ by {ce:.3e}")
+        for k, v in ne.items():
+            worst["unequal"][k] = max(worst["unequal"].get(k, 0), v)
+        worst["colors"] = max(worst["colors"], ce)
+        return ne, ce
+
+    cases = []
+    for model in ("pinhole", "ortho", "fisheye", "spherical"):
+        for aa in (False, True):
+            for deg in range(5):
+                k = (deg + 1) ** 2
+                cases.append((f"{model} aa={aa} deg {deg} K {k}", model, aa,
+                              dict(sh_coeffs=ps["sh"][:, :k].contiguous(), sh_degree=deg)))
+        cases.append((f"{model} deg 1 K 16", model, False,
+                      dict(sh_coeffs=ps["sh"][:, :16].contiguous(), sh_degree=1)))
+        cases.append((f"{model} flat colours", model, True, dict(colors=ps["colors"])))
+    with torch.no_grad():
+        for name, model, aa, extra in cases:
+            kw = dict(extra, camera_model=model, antialiased=aa, alive=ps["alive"],
+                      radius_clip=0.3, near_plane=0.05)
+            got = project_gaussians(*geo, 320, 240, **kw)
+            want = project_gaussians_plain(*geo, 320, 240, **kw)
+            torch.cuda.synchronize()
+            ne, ce = check(name, got, want)
+            log(f"  {name}: {int(want.valid.sum())} of {want.valid.numel()} valid; unequal "
+                f"{ {k: v for k, v in ne.items() if v} }, colours {ce:.2e}")
+    log(f"  small scene, {len(cases)} cases: worst unequal {worst['unequal']}, colours "
+        f"{worst['colors']:.2e} (atol {PROJ_COLOR_ATOL})")
+
+    row = {"name": "project_fwd", "route": "cuda",
+           "source": "splat_one_tpu_torch/csrc/project_fwd.cu", "replaces": None,
+           "library_ms": None}
+    for name, model, W, H, focal, cap, n_live, n_pruned, extent, eye in PROJ_SIZES:
+        params, alive = viewer_model(dev, cap, n_live, n_pruned, extent)
+        rd = Renderer(params, alive, W, H, sh_degree=3, camera_model=model, device=dev)
+        del params, alive
+        c2w = yaw_pose(0.0, *eye)
+        K = np.float32([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]])
+        vm = invert_se3(torch.as_tensor(c2w, device=dev)[None])
+        args = (rd.means, rd.quats, rd.scales, rd.opacities, vm,
+                torch.as_tensor(K, device=dev)[None], W, H)
+        kw = dict(sh_coeffs=rd.colors, sh_degree=3, camera_model=model)
+        with torch.no_grad():
+            got = project_gaussians(*args, **kw)
+            want = project_gaussians_plain(*args, **kw)
+            torch.cuda.synchronize()
+            ne, ce = check(f"{name} {model}", got, want)
+            n_valid = int(want.valid.sum())
+            del got, want
+            ms = cuda_ms(lambda: project_gaussians(*args, **kw), 20)
+            plain_ms = cuda_ms(lambda: project_gaussians_plain(*args, **kw), 3)
+        k = rd.colors.shape[1]
+        # every row's geometry in (44 B) and fields out (45 B); the SH
+        # coefficients of every row, or of the valid rows alone (the least
+        # a viewer needs: a culled row's colour is never read)
+        mb = cap * (12 + 16 + 12 + 4 + 12 * k + 45) / 1e6
+        valid_mb = (cap * (12 + 16 + 12 + 4 + 45) + n_valid * 12 * k) / 1e6
+        bound_ms, valid_bound_ms = (x * 1e6 / HBM_BYTES_PER_S * 1e3 for x in (mb, valid_mb))
+        log(f"  {name} {model} {cap} rows ({n_valid} valid) {W}x{H}: unequal "
+            f"{ {k: v for k, v in ne.items() if v} }, colours {ce:.2e}; kernel {ms:.4f} ms "
+            f"(CUDA events, 20 launches), bound {bound_ms:.4f} ms by bytes ({mb:.1f} MB: "
+            f"{100 * bound_ms / ms:.1f} %), with the valid rows' SH alone {valid_bound_ms:.4f}"
+            f" ms ({valid_mb:.1f} MB: {100 * valid_bound_ms / ms:.1f} %); plain version "
+            f"{plain_ms:.3f} ms | {card}")
+        cuda_build.launch_counts.clear()
+        rd(c2w, K, model)
+        torch.cuda.synchronize()
+        n_req = cuda_build.launch_counts["project_fwd"]
+        log(f"  {name}: one viewer request launched project_fwd {n_req} time(s)")
+        require(n_req == 1, f"{name}: the viewer request did not launch project_fwd once")
+        pre = "" if model == "pinhole" else "spherical_"
+        row.update({f"{pre}ms": ms, f"{pre}plain_ms": plain_ms, f"{pre}bound_ms": bound_ms,
+                    f"{pre}valid_bound_ms": valid_bound_ms})
+        del rd, args, kw
+        torch.cuda.empty_cache()
+    row.update(bound_by="bytes", max_abs_err=worst["colors"], unequal=worst["unequal"],
+               launches=1)
+    return row
 
 
 def serve_params(sc):
@@ -5153,6 +5359,8 @@ def main():
     }
     del params, alive, render_fn, outputs, proj, isect, packed, out_k
     torch.cuda.empty_cache()
+    proj_row = projection_phase(dev, card)
+    torch.cuda.empty_cache()
     tile_fwd_row = tiled_render_phase(dev, card, sc, max_err)
     torch.cuda.empty_cache()
 
@@ -5186,6 +5394,7 @@ def main():
         row["slab_launches"] = slab_counts.get(row["name"], 0)
         require(row["slab_launches"] > 0, f"{row['name']} was not launched in phase 7")
         row["offset_ms"] = offset_ms[row["name"]]
+    kernels.append(proj_row)
 
     # phase 6: the kernels line, the card line, the result line
     print(json.dumps({"kernels": kernels}), flush=True)

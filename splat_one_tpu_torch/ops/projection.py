@@ -4,8 +4,14 @@ Counterpart of ``splat_one_tpu/ops/projection.py``: pinhole, ortho,
 fisheye and spherical cameras, antialiased opacity compensation, near/far
 and radius culling, the ``alive`` mask, SH colours and per-camera colours.
 The float expressions are the JAX package's own, term for term, so the
-``valid`` decisions agree exactly. Written struct-of-arrays over
-[C, N]: every intermediate is a flat per-(camera, gaussian) tensor.
+``valid`` decisions agree exactly. ``project_gaussians_plain`` is written
+struct-of-arrays over [C, N]: every intermediate is a flat
+per-(camera, gaussian) tensor, and autograd runs through it.
+
+``project_gaussians`` takes the kernel (``project_fwd``,
+``csrc/project_fwd.cu``: the same expressions in one pass over the rows)
+for CUDA inputs that autograd does not record through, and the plain
+version for everything else: the training forward and every CPU call.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ import torch
 
 from splat_one_tpu_torch.core import cameras as cam
 from splat_one_tpu_torch.core import sh as shlib
+from splat_one_tpu_torch.utils import cuda_build
+from splat_one_tpu_torch.utils.profiling import count
 
 EPS2D = 0.3  # standard 3DGS screen-space low-pass filter
 
@@ -72,7 +80,7 @@ def _rotmat_soa(quats):
     )
 
 
-def project_gaussians(
+def project_gaussians_plain(
     means: torch.Tensor,  # [N, 3]
     quats: torch.Tensor,  # [N, 4] wxyz (unnormalized ok)
     scales: torch.Tensor,  # [N, 3] positive
@@ -93,7 +101,7 @@ def project_gaussians(
     antialiased: bool = False,
     alive: Optional[torch.Tensor] = None,  # [N] bool
 ) -> Projected:
-    """Project all gaussians into all cameras."""
+    """Project all gaussians into all cameras: the plain PyTorch version."""
     if camera_model not in cam.CAMERA_MODELS:
         raise ValueError(f"unknown camera_model {camera_model!r}")
     if sh_coeffs is None and colors is None:
@@ -240,3 +248,146 @@ def project_gaussians(
     else:
         col = colors
     return Projected(uv, conic, depth, radius, col, opac, ok)
+
+
+def records_grad(*tensors) -> bool:
+    """Whether autograd records through a call on ``tensors`` (None
+    entries skipped): grad mode on and some input requiring grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _staged(t):
+    """``t`` contiguous and 16-byte aligned, as the kernel stages it: a
+    copy only where it is neither (a camera sliced out of a stack of
+    ``Ks`` is not aligned)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def project_gaussians(
+    means: torch.Tensor,  # [N, 3]
+    quats: torch.Tensor,  # [N, 4] wxyz (unnormalized ok)
+    scales: torch.Tensor,  # [N, 3] positive
+    opacities: torch.Tensor,  # [N] in [0, 1]
+    viewmats: torch.Tensor,  # [C, 4, 4] world->camera
+    Ks: torch.Tensor,  # [C, 3, 3]
+    width: int,
+    height: int,
+    *,
+    sh_coeffs: Optional[torch.Tensor] = None,  # [N, K, 3]
+    sh_degree: int = 0,
+    colors: Optional[torch.Tensor] = None,  # [N, D] or [C, N, D]
+    camera_model: str = "pinhole",
+    near_plane: float = 0.01,
+    far_plane: float = 1e10,
+    radius_clip: float = 0.0,
+    eps2d: float = EPS2D,
+    antialiased: bool = False,
+    alive: Optional[torch.Tensor] = None,  # [N] bool
+) -> Projected:
+    """Project all gaussians into all cameras.
+
+    CUDA inputs that autograd does not record through (``records_grad``)
+    launch the kernel (``project_fwd``, whose checks raise; the inputs
+    staged contiguous and aligned first); everything else runs
+    ``project_gaussians_plain``. The rows the kernel projected, C * N or
+    0, are counted as ``proj_kernel_rows`` on the open span."""
+    kernel = means.device.type == "cuda" and not records_grad(
+        means, quats, scales, opacities, viewmats, Ks, sh_coeffs, colors)
+    count("proj_kernel_rows", viewmats.shape[0] * means.shape[0] if kernel else 0)
+    if not kernel:
+        return project_gaussians_plain(
+            means, quats, scales, opacities, viewmats, Ks, width, height,
+            sh_coeffs=sh_coeffs, sh_degree=sh_degree, colors=colors,
+            camera_model=camera_model, near_plane=near_plane, far_plane=far_plane,
+            radius_clip=radius_clip, eps2d=eps2d, antialiased=antialiased, alive=alive)
+    if sh_coeffs is None and colors is None:
+        raise ValueError("either sh_coeffs or colors must be given")
+    ins = [_staged(t) for t in (means, quats, scales, opacities, viewmats, Ks)]
+    uv, conic, depth, radius, col, opac, ok = project_fwd(
+        *ins, width, height, sh_coeffs=None if sh_coeffs is None else _staged(sh_coeffs),
+        sh_degree=sh_degree, camera_model=camera_model, near_plane=near_plane,
+        far_plane=far_plane, radius_clip=radius_clip, eps2d=eps2d, antialiased=antialiased,
+        alive=None if alive is None else alive.contiguous())
+    if col is None:
+        col = colors.expand((viewmats.shape[0],) + colors.shape) if colors.ndim == 2 else colors
+    return Projected(uv, conic, depth, radius, col, opac, ok)
+
+
+def _check_cuda(named, dev):
+    """Raise unless every ``(name, tensor, _)`` lies on CUDA device ``dev``."""
+    for name, t, _ in named:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name} must be on the CUDA device {dev}, got {t.device}")
+
+
+_MODEL_IDS = {"pinhole": 0, "ortho": 1, "fisheye": 2, "spherical": 3}
+_ROWS = 128  # rows a tile of the kernel
+_MAX_K = 25  # SH coefficients a row the kernel stages (degree 4)
+
+
+def project_fwd(means, quats, scales, opacities, viewmats, Ks, width: int, height: int, *,
+                sh_coeffs=None, sh_degree: int = 0, camera_model: str = "pinhole",
+                near_plane: float = 0.01, far_plane: float = 1e10,
+                radius_clip: float = 0.0, eps2d: float = EPS2D,
+                antialiased: bool = False, alive=None):
+    """The kernel (built from ``csrc/project_fwd.cu`` at first use) ->
+    ``(means2d [C, N, 2], conics [C, N, 3], depths, radii, colors [C, N,
+    3] or None without ``sh_coeffs``, opacities, valid)``, the plain
+    version's fields. Inputs: float32, contiguous, 16-byte aligned, on
+    one CUDA device; ``alive`` bool; raises on anything else."""
+    if camera_model not in _MODEL_IDS:
+        raise ValueError(f"unknown camera_model {camera_model!r}")
+    N, C = means.shape[0], viewmats.shape[0]
+    named = [("means", means, (N, 3)), ("quats", quats, (N, 4)), ("scales", scales, (N, 3)),
+             ("opacities", opacities, (N,)), ("viewmats", viewmats, (C, 4, 4)),
+             ("Ks", Ks, (C, 3, 3))]
+    nb = (sh_degree + 1) ** 2
+    if sh_coeffs is not None:
+        if not 0 <= sh_degree <= shlib.MAX_SH_DEGREE:
+            raise ValueError(f"SH degree must be in [0,{shlib.MAX_SH_DEGREE}], got {sh_degree}")
+        K = sh_coeffs.shape[1] if sh_coeffs.dim() == 3 else 0
+        if not nb <= K <= _MAX_K:
+            raise ValueError(f"sh_coeffs must hold {nb} to {_MAX_K} coefficients a row at "
+                             f"degree {sh_degree}, got shape {tuple(sh_coeffs.shape)}")
+        named.append(("sh_coeffs", sh_coeffs, (N, K, 3)))
+    for name, t, shape in named:
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be float32 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if alive is not None:
+        if alive.dtype != torch.bool or tuple(alive.shape) != (N,) or not alive.is_contiguous():
+            raise ValueError(f"alive must be contiguous bool ({N},), got {alive.dtype} "
+                             f"{tuple(alive.shape)}")
+        named.append(("alive", alive, None))
+    if N >= 2**31 - _ROWS:
+        raise ValueError(f"{N} rows: the kernel indexes rows with 32-bit ints")
+    dev = means.device
+    _check_cuda(named, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    uv = torch.empty((C, N, 2), **f32)
+    conic = torch.empty((C, N, 3), **f32)
+    depth = torch.empty((C, N), **f32)
+    radius = torch.empty((C, N), **f32)
+    col = None if sh_coeffs is None else torch.empty((C, N, 3), **f32)
+    opac = torch.empty((C, N), **f32)
+    ok = torch.empty((C, N), dtype=torch.bool, device=dev)
+    sh_ptr, alive_ptr, col_ptr = (None if t is None else t.data_ptr()
+                                  for t in (sh_coeffs, alive, col))
+    lib = cuda_build.library("project_fwd")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.project_fwd(
+            means.data_ptr(), quats.data_ptr(), scales.data_ptr(), opacities.data_ptr(),
+            sh_ptr, alive_ptr, viewmats.data_ptr(), Ks.data_ptr(),
+            uv.data_ptr(), conic.data_ptr(), depth.data_ptr(), radius.data_ptr(), col_ptr,
+            opac.data_ptr(), ok.data_ptr(), N, C,
+            0 if sh_coeffs is None else sh_coeffs.shape[1], nb, _MODEL_IDS[camera_model],
+            int(antialiased), int(width), int(height), float(near_plane), float(far_plane),
+            float(radius_clip), float(eps2d), stream)
+    cuda_build.check(lib, rc, "project_fwd")
+    cuda_build.launch_counts["project_fwd"] += 1
+    return uv, conic, depth, radius, col, opac, ok

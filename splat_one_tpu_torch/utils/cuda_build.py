@@ -58,6 +58,11 @@ SIGNATURES = {
     # pbases, offs_pad, sx0, sy0, span, ka, depth, key, g, nb, mp, slab,
     # exp_cap, n, sw, ns, cs, st_lo, wrap, segmented, stream
     "seg_broadcast": [_P] * 9 + [_I] * 11 + [_P],
+    # means, quats, scales, opacities, sh (or NULL), alive (or NULL),
+    # viewmats, Ks, means2d, conics, depths, radii, colors (or NULL),
+    # opacities out, valid, n, c, k, nb, model, antialiased, width, height,
+    # near_plane, far_plane, radius_clip, eps2d, stream
+    "project_fwd": [_P] * 15 + [_I] * 8 + [_F] * 4 + [_P],
 }
 
 launch_counts: collections.Counter = collections.Counter()
