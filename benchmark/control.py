@@ -9,8 +9,9 @@ The control is the reference put in the program's place, computed in the
 precision below the configuration's float32: bfloat16 (the render has no
 tensor-core work, so TF32 changes almost nothing; it is read beside it).
 The fault, planted in the reference put in the program's place: each
-answer replaced by the one before it. Prints one JSON line per seed; the
-benchmark's own runs never run this.
+answer replaced by the one before it. The cell's kind
+(``kinds/<kind>.py``) reads both, in its ``control_readings``. Prints one
+JSON line per seed; the benchmark's own runs never run this.
 """
 
 import argparse
@@ -25,22 +26,14 @@ if ROOT not in sys.path:
 
 import torch  # noqa: E402
 
-from benchmark import drivers as D  # noqa: E402
 from benchmark import harness as H  # noqa: E402
-from benchmark import scene as S  # noqa: E402
 
 PRECISIONS = ("bf16", "tf32")
 
 
-def view_readings(cfg, mix, seed, dev, precisions=PRECISIONS) -> dict:
-    poses = D.view_poses(cfg, mix, seed)[: int(mix["check_requests"])]
-    su = D.ViewSetup(cfg, mix, seed, dev, S.intrinsics(cfg), list(poses))
-    ref = D.reference_view(su)
-    out = {p: D.compare_view([D.as_answer(r) for r in D.reference_view(su, p)], ref)
-           for p in precisions}
-    stale = [D.as_answer(ref[(i - 1) % len(ref)]) for i in range(len(ref))]
-    out["stale_answer"] = D.compare_view(stale, ref)
-    return out
+def readings(cfg, mix, seed, dev, precisions=PRECISIONS) -> dict:
+    """The control's and the fault's compared numbers of one seed."""
+    return H.load_kind(mix["kind"]).control_readings(cfg, mix, seed, dev, precisions)
 
 
 def main(argv=None) -> int:
@@ -52,7 +45,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     for seed in args.seeds:
         t0 = time.perf_counter()
-        got = view_readings(cfg, mix, seed, dev)
+        got = readings(cfg, mix, seed, dev)
         print(json.dumps({"workload": args.workload, "seed": seed, "limits": limits,
                           "readings": got, "seconds": time.perf_counter() - t0}), flush=True)
     return 0

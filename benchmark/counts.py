@@ -11,7 +11,8 @@ A (pixel, gaussian) pair is one the model needs (``reference.render``'s
 form, the exponential, the clamps and kill tests, the weight, three
 colours and the depth accumulated, the transmittance update), as the
 repo's bring-up script derives them from the compositing kernel's
-per-pair arithmetic.
+per-pair arithmetic. The work of each live gaussian is its model's
+(``models/<model>.py``: ``OPS_PER_GAUSSIAN``, ``BYTES_PER_GAUSSIAN``).
 """
 
 from __future__ import annotations
@@ -21,13 +22,6 @@ HBM_BYTES_PER_S = 3.35e12
 
 OPS_PAIR_FWD = 26
 
-# Per live gaussian, one view: the rotation from the quaternion (normalise
-# 12, matrix 28), the 3D covariance (scale 9, M M^T 45), the camera-frame
-# mean (18), the Jacobian (12), T = J R (30), T Sigma T^T (48), the conic,
-# determinant and radius (22), the membership extents and culling (24),
-# the view direction (14), the 16 SH basis values (35) and the colour
-# (96 + 6).
-OPS_PROJECT_FWD = 12 + 28 + 9 + 45 + 18 + 12 + 30 + 48 + 22 + 24 + 14 + 35 + 102
 # Per pixel of a served frame: expected depth, clamp and the uint8 scale.
 OPS_ASSEMBLE_PER_PIXEL = 8
 
@@ -35,8 +29,18 @@ FIELDS = 10  # per gaussian on screen: uv 2, conic 3, opacity 1, colour 3, depth
 PIXEL_OUT = 5  # rgb 3, alpha 1, depth 1
 
 
-def view_ops(n_alive: int, pixels: int, pairs: int) -> float:
-    return n_alive * OPS_PROJECT_FWD + pairs * OPS_PAIR_FWD + pixels * OPS_ASSEMBLE_PER_PIXEL
+def view_ops(n_alive: int, pixels: int, pairs: int, ops_per_gaussian: int) -> float:
+    return n_alive * ops_per_gaussian + pairs * OPS_PAIR_FWD + pixels * OPS_ASSEMBLE_PER_PIXEL
+
+
+def project_bound_s(n_alive: int, visible: int, ops_per_gaussian: int,
+                    bytes_per_gaussian: int) -> float:
+    """Least time of the projection: its operations, or reading each live
+    gaussian's parameters once and writing each on-screen gaussian's
+    fields once."""
+    ops = n_alive * ops_per_gaussian / F32_FLOPS
+    nbytes = n_alive * bytes_per_gaussian + 4 * visible * FIELDS
+    return max(ops, nbytes / HBM_BYTES_PER_S)
 
 
 def fwd_bound_s(pairs: int, visible: int, pixels: int) -> float:

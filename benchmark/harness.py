@@ -1,10 +1,20 @@
 """Finds a cell's files by name and turns one run into its result line.
 
 Everything that belongs to one configuration, traffic mix or per-layer
-metric is a file of its own, found from the names in ``BENCHMARK.json``:
+metric is a file of its own, found from the names in ``BENCHMARK.json``
+and in those files; a cell is added with new files and new entries alone:
 
 - a configuration: the ``file`` its entry names (``configs/<name>.json``);
-- a traffic mix: ``traffic/<traffic>.json``, read by ``drivers``;
+- its model: ``models/<model>.py`` for the configuration's key ``model``
+  (``gaussians``, 3DGS with SH 3, where there is none): ``make_weights``,
+  ``program``, ``reference_rows``, ``color``, ``OPS_PER_GAUSSIAN`` and
+  ``BYTES_PER_GAUSSIAN`` (``models/gaussians.py`` says what each is);
+- a traffic mix: ``traffic/<traffic>.json``, the parameters of its kind;
+- a traffic kind: ``kinds/<kind>.py`` for the mix's ``kind``, whose
+  ``run`` keeps the contract in ``drivers``;
+- a camera model, for a mix that names a ``camera_model``:
+  ``reference/cameras/<camera_model>.py`` (``reference/cameras/pinhole.py``
+  says what it gives);
 - a per-layer metric: ``metrics/<name>.py`` with ``read(ctx)`` returning a
   number or None (nothing to read: the metric is left out of the line), or,
   where there is no such file, the shared reader ``metrics/<stem>.py`` of
@@ -28,6 +38,7 @@ from typing import Dict, List, Optional
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 FORBIDDEN = ("jax", "jaxlib", "flax", "splat_one_tpu")
+DEFAULT_MODEL = "gaussians"
 
 
 class Refused(Exception):
@@ -68,15 +79,34 @@ def per_layer_for(spec: dict, cell_name: str) -> List[dict]:
             if (cell_name in m["workloads"] if "workloads" in m else m["moves"] in mine)]
 
 
-def load_metric(name: str, bench: str = HERE):
-    path = os.path.join(bench, "metrics", name + ".py")
+def _module(sub: str, name: str, bench: str):
+    """``<bench>/<sub>/<name>.py``, loaded; Refused where there is none."""
+    path = os.path.join(bench, sub, name + ".py")
     if not os.path.exists(path):
-        path = os.path.join(bench, "metrics", name.split(".")[0] + ".py")
-    spec = importlib.util.spec_from_file_location("benchmark_metric_" + name.replace(".", "_"),
-                                                  path)
+        raise Refused(f"no {sub}/{name}.py")
+    spec = importlib.util.spec_from_file_location(
+        f"benchmark_{sub}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_metric(name: str, bench: str = HERE):
+    if os.path.exists(os.path.join(bench, "metrics", name + ".py")):
+        return _module("metrics", name, bench)
+    return _module("metrics", name.split(".")[0], bench)
+
+
+def load_kind(name: str, bench: str = HERE):
+    return _module("kinds", name, bench)
+
+
+def model_name(cfg: dict) -> str:
+    return cfg.get("model", DEFAULT_MODEL)
+
+
+def load_model(cfg: dict, bench: str = HERE):
+    return _module("models", model_name(cfg), bench)
 
 
 def forbidden_modules() -> List[str]:
@@ -93,10 +123,11 @@ def guard_imports(where: str):
 
 class Context:
     """What a per-layer reader reads: the trace, the units of work it
-    covers, the untraced window's time per unit and the counted work."""
+    covers, the untraced window's time per unit, the counted work and the
+    configuration's model file (its work per gaussian)."""
 
-    def __init__(self, cell: dict, cfg: dict, mix: dict, outcome: dict):
-        self.cell, self.cfg, self.mix = cell, cfg, mix
+    def __init__(self, cell: dict, cfg: dict, mix: dict, outcome: dict, model):
+        self.cell, self.cfg, self.mix, self.model = cell, cfg, mix, model
         self.trace = outcome.get("trace")
         self.units = outcome.get("units", 0)
         self.unit_s = outcome.get("unit_s")
@@ -146,11 +177,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, dev, t0: flo
     result line on standard output, and returns the line."""
     import torch
 
-    from benchmark import drivers as D
     from benchmark import trace as T
 
     spec = load_spec(root)
     cell, cfg, mix, limits = cell_files(spec, workload, root, bench)
+    kind, model = load_kind(mix["kind"], bench), load_model(cfg, bench)
     tf32 = bool(cfg.get("tf32", False))
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
@@ -163,7 +194,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, dev, t0: flo
         guard_imports("after set-up")
         return time.perf_counter() - t0
 
-    out = D.KINDS[mix["kind"]](cfg, mix, seed, seconds, trace, dev, setup_clock)
+    out = kind.run(cfg, mix, seed, seconds, trace, dev, setup_clock)
     guard_imports("after the window")
     device = {"platform": "gpu" if dev.type == "cuda" else dev.type,
               "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
@@ -174,8 +205,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, dev, t0: flo
         device["busy_s"] = T.busy_us(tr) * 1e-6
         device["window_s"] = T.window_us(tr) * 1e-6
         breakdown = {"device_ops": T.top_device_ops(tr), "idle_gaps": T.idle_gaps(tr)}
-        metrics = read_per_layer(per_layer_for(spec, workload), Context(cell, cfg, mix, out),
-                                 bench)
+        ctx = Context(cell, cfg, mix, out, model)
+        metrics = read_per_layer(per_layer_for(spec, workload), ctx, bench)
     else:
         values = dict(out["values"], setup_s=out["setup_s"],
                       peak_mem_gib=out["peak_bytes"] / 2 ** 30)

@@ -5,16 +5,20 @@ the conventions the measured renderer documents for its output:
 
 - Projection (EWA): camera-frame mean ``p = R_w2c m + t``, 3D covariance
   ``Sigma = R(q) S S R(q)^T``, screen covariance ``J R_w2c Sigma R_w2c^T
-  J^T + 0.3 I`` with the pinhole Jacobian (its x/z and y/z clamped to 1.3
-  times the half field of view) or the equirectangular one; conic = its
-  inverse; colours ``max(SH_3(dir) + 0.5, 0)``.
+  J^T + 0.3 I`` with the camera model's Jacobian; conic = its inverse;
+  colours as the model's ``color`` gives them (``max(SH_3(dir) + 0.5, 0)``
+  for 3DGS's own).
+- A camera model is a file, ``cameras/<name>.py`` (``camera``): its
+  ``depth`` (for the near and far test, the order and the expected
+  depth), its ``screen`` position, its ``jacobian`` and ``WRAP``, whether
+  the image wraps in u (an equirectangular one does).
 - A gaussian is kept when its depth lies in (near, far), its screen
   covariance is positive definite and the box of its
-  membership ellipse meets the image (only in v for spherical views). The
-  ellipse has ``s = min(3, sqrt(2 ln(255 opacity))) + 1e-3`` sigmas.
+  membership ellipse meets the image (only in v where the image wraps).
+  The ellipse has ``s = min(3, sqrt(2 ln(255 opacity))) + 1e-3`` sigmas.
 - Membership: a gaussian reaches the 16 px tiles, and the 32 px supertiles,
-  that the axis-aligned box of that ellipse covers (in azimuth modulo the
-  width for spherical views).
+  that the axis-aligned box of that ellipse covers (in u modulo the
+  width where the image wraps).
 - Order: each supertile lists its gaussians by depth, ties in gaussian
   order; the supertiles' lists follow one another in row-major order and
   are read in chunks of 128 slots aligned to multiples of 128 in that one
@@ -39,7 +43,8 @@ while its own transmittance is still at least 1e-5.
 from __future__ import annotations
 
 import contextlib
-import math
+import importlib.util
+import os
 from typing import Dict, NamedTuple
 
 import torch
@@ -86,10 +91,9 @@ def alpha_max(dtype) -> float:
 
 
 def activate(raw: Dict[str, torch.Tensor]):
-    """Stored parameters (log scales, logit opacities) -> render values."""
+    """Stored geometry (log scales, logit opacities) -> render values."""
     return dict(means=raw["means"], quats=raw["quats"], scales=torch.exp(raw["scales"]),
-                opacities=torch.sigmoid(raw["opacities"]),
-                sh=torch.cat([raw["sh0"], raw["shN"]], dim=1))
+                opacities=torch.sigmoid(raw["opacities"]))
 
 
 def sh_basis3(d: torch.Tensor) -> torch.Tensor:
@@ -148,9 +152,25 @@ def world_to_camera(c2w) -> tuple:
     return R, -R @ c2w[:3, 3]
 
 
-def project(act, c2w, K, width: int, height: int, model: str = "pinhole",
-            near: float = 0.01, far: float = 1e10, dtype=torch.float32) -> Proj:
-    """Screen-space gaussians in one camera."""
+CAMERAS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cameras")
+
+
+def camera(name: str, folder: str = CAMERAS):
+    """The camera model ``<folder>/<name>.py``."""
+    path = os.path.join(folder, name + ".py")
+    if not os.path.exists(path):
+        raise ValueError(f"camera model {name!r} is not in the reference")
+    spec = importlib.util.spec_from_file_location("benchmark_camera_" + name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def project(act, c2w, K, width: int, height: int, cam, color, near: float = 0.01,
+            far: float = 1e10, dtype=torch.float32) -> Proj:
+    """Screen-space gaussians in one camera: ``cam`` a camera model
+    (``camera``), ``color(act, front, dirs, dtype)`` the colour of the
+    rows ``front`` seen along the unit directions ``dirs``."""
     dev = act["means"].device
     cast = lambda x: x.to(dtype)
     means, quats, scales, opac = (cast(act[k]) for k in ("means", "quats", "scales",
@@ -162,7 +182,7 @@ def project(act, c2w, K, width: int, height: int, model: str = "pinhole",
     fx, fy, cx, cy = (float(K[0, 0]), float(K[1, 1]), float(K[0, 2]), float(K[1, 2]))
     p = means @ R.T + t
     x, y, z = p.unbind(-1)
-    depth_all = z if model == "pinhole" else torch.sqrt(x * x + y * y + z * z + 1e-24)
+    depth_all = cam.depth(x, y, z)
     # only gaussians inside (near, far) go on: the rest are culled before
     # their Jacobians (at z near 0) are formed
     front = torch.nonzero((depth_all > near) & (depth_all < far))[:, 0].detach()
@@ -171,34 +191,9 @@ def project(act, c2w, K, width: int, height: int, model: str = "pinhole",
     x, y, z = p.unbind(-1)
     M = quat_rotmat(quats) * scales[:, None, :]
     sigma3 = M @ M.transpose(1, 2)
-    zero = torch.zeros_like(x)
-    if model == "pinhole":
-        zs = torch.clamp(z, min=1e-6)
-        lx, ly = 1.3 * 0.5 * width / fx, 1.3 * 0.5 * height / fy
-        xc = zs * torch.clamp(x / zs, -lx, lx)
-        yc = zs * torch.clamp(y / zs, -ly, ly)
-        iz = 1.0 / torch.where(torch.abs(z) < 1e-8, torch.full_like(z, 1e-8), z)
-        J = torch.stack([fx * iz, zero, -fx * xc * iz * iz,
-                         zero, fy * iz, -fy * yc * iz * iz], -1).reshape(-1, 2, 3)
-        depth = z
-        u = fx * x * iz + cx
-        v = fy * y * iz + cy
-    elif model == "spherical":
-        rxz2 = torch.clamp(x * x + z * z, min=1e-8)
-        r2 = torch.clamp(x * x + y * y + z * z, min=1e-8)
-        rxz = torch.sqrt(rxz2)
-        cu, cv = width / (2.0 * math.pi), -height / math.pi
-        J = torch.stack([cu * z / rxz2, zero, -cu * x / rxz2,
-                         cv * x * y / (r2 * rxz), -cv * rxz / r2, cv * z * y / (r2 * rxz)],
-                        -1).reshape(-1, 2, 3)
-        depth = torch.sqrt(x * x + y * y + z * z + 1e-24)
-        r = torch.sqrt(x * x + y * y + z * z)
-        lon = torch.atan2(x, z)
-        lat = torch.asin(torch.clamp(-y / torch.clamp(r, min=1e-8), -1.0, 1.0))
-        u = (lon / (2.0 * math.pi) + 0.5) * width
-        v = (0.5 - lat / math.pi) * height
-    else:
-        raise ValueError(f"camera model {model!r} is not in the reference")
+    J = cam.jacobian(x, y, z, fx, fy, width, height)
+    depth = cam.depth(x, y, z)
+    u, v = cam.screen(x, y, z, fx, fy, cx, cy, width, height)
     T = J @ R
     cov = T @ sigma3 @ T.transpose(1, 2)
     a = cov[:, 0, 0] + EPS2D
@@ -214,13 +209,12 @@ def project(act, c2w, K, width: int, height: int, model: str = "pinhole",
     rx = ext * torch.sqrt(torch.clamp(a, min=0.0))
     ry = ext * torch.sqrt(torch.clamp(c, min=0.0))
     ok = (det > 0) & (radius > 0) & (v + ry > 0) & (v - ry < height)
-    if model != "spherical":
+    if not cam.WRAP:
         ok &= (u + rx > 0) & (u - rx < width)
     campos = torch.as_tensor(c2w, dtype=torch.float64)[:3, 3].to(dev, dtype)
     d = means[front] - campos
     d = d / torch.sqrt(torch.sum(d * d, -1, keepdim=True) + 1e-20)
-    sh = cast(act["sh"])[front]
-    color = torch.clamp(torch.einsum("nk,nkc->nc", sh_basis3(d), sh[:, :16]) + 0.5, min=0.0)
+    col = color(act, front, d, dtype)
 
     def full(x, fill=0.0):
         out = torch.full((n_all,) + tuple(x.shape[1:]), fill, dtype=x.dtype, device=dev)
@@ -228,7 +222,7 @@ def project(act, c2w, K, width: int, height: int, model: str = "pinhole",
 
     valid = torch.zeros(n_all, dtype=torch.bool, device=dev)
     valid[front] = ok.detach()
-    return Proj(full(torch.stack([u, v], -1)), full(conic), full(opac_f), full(color),
+    return Proj(full(torch.stack([u, v], -1)), full(conic), full(opac_f), full(col),
                 full(depth, -1.0), valid)
 
 
@@ -428,11 +422,9 @@ def composite(proj: Proj, lists: Lists, width: int, height: int, wrap: bool,
 
 
 @torch.no_grad()
-def render(act, c2w, K, width: int, height: int, model: str = "pinhole",
-           near: float = 0.01, far: float = 1e10, dtype=torch.float32,
-           elems: int = BLOCK_ELEMS) -> Render:
-    """Forward render of one view."""
-    proj = project(act, c2w, K, width, height, model, near, far, dtype=dtype)
-    lists = build_lists(proj, width, height, model == "spherical")
-    return composite(proj, lists, width, height, model == "spherical", dtype=dtype,
-                     elems=elems)
+def render(act, c2w, K, width: int, height: int, cam, color, near: float = 0.01,
+           far: float = 1e10, dtype=torch.float32, elems: int = BLOCK_ELEMS) -> Render:
+    """Forward render of one view (``project``'s arguments)."""
+    proj = project(act, c2w, K, width, height, cam, color, near, far, dtype=dtype)
+    lists = build_lists(proj, width, height, cam.WRAP)
+    return composite(proj, lists, width, height, cam.WRAP, dtype=dtype, elems=elems)

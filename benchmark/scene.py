@@ -1,12 +1,13 @@
-"""Seeded synthetic scenes with a capture's layout, made on the device.
+"""Seeded synthetic scenes with a capture's layout, made on the device:
+the layout helpers that a model file's ``make_weights``
+(``models/<model>.py``) draws its rows with, and the cameras.
 
 A configuration file describes a scene as data: its regions (where the
 gaussians lie, how large and how opaque they are) and the rows a grown
-and pruned 3DGS run leaves dead. This module turns that description and a
-seed into ``weights``, the stored parameters of a trained model (means,
-wxyz quaternions, log scales, logit opacities, SH bands) in ``capacity``
-rows, and ``alive``, the rows that hold its ``n_gaussians`` live
-gaussians. The buffer is laid out as the port's Trainer leaves it:
+and pruned 3DGS run leaves dead. A model turns that description and a
+seed into ``weights``, the stored parameters of a trained model in
+``capacity`` rows, and ``alive``, the rows that hold its ``n_gaussians``
+live gaussians. The buffer is laid out as the port's Trainer leaves it:
 
 - rows ``[0, n + pruned)``: the live gaussians and ``pruned`` gaussians
   that densification pruned (their opacity fell under the prune level),
@@ -17,11 +18,13 @@ gaussians. The buffer is laid out as the port's Trainer leaves it:
 
 Every seed serves the same model, so that every run does the same work:
 its gaussians come from one ``torch.Generator`` on the device with a seed
-of the scene's own, in a few large calls. The seed orders the used rows
-in the buffer, as another run's densification would. Region shapes: ``ball`` (uniform in a ball), ``disc`` (a thin horizontal disc),
-``shell`` (a thick spherical shell, cut to a band of heights),
-``box_surface`` (the six faces of a box, by area) and ``boxes`` (the
-surfaces of ``count`` boxes of given size range and place inside a bound).
+of the scene's own (``LAYOUT_SEED``), in a few large calls. The seed
+orders the used rows in the buffer, as another run's densification
+would. Region shapes: ``ball`` (uniform in a ball), ``disc`` (a thin
+horizontal disc), ``shell`` (a thick spherical shell, cut to a band of
+heights), ``box_surface`` (the six faces of a box, by area) and ``boxes``
+(the surfaces of ``count`` boxes of given size range and place inside a
+bound).
 """
 
 from __future__ import annotations
@@ -30,8 +33,6 @@ import math
 
 import numpy as np
 import torch
-
-SH_C0 = 0.28209479177387814
 
 
 def np_rng(seed: int, salt: int) -> np.random.Generator:
@@ -55,7 +56,7 @@ def _uniform(g, n, dev, lo=0.0, hi=1.0):
 LAYOUT_SEED = 0
 
 
-def _region_points(r: dict, n: int, g: torch.Generator, dev) -> torch.Tensor:
+def region_points(r: dict, n: int, g: torch.Generator, dev) -> torch.Tensor:
     c = torch.tensor(r.get("center", [0.0, 0.0, 0.0]), device=dev)
     shape = r["shape"]
     if shape == "ball":
@@ -112,53 +113,6 @@ def dead_rows(cfg: dict) -> int:
     as fit below the capacity."""
     n, cap = int(cfg["n_gaussians"]), int(cfg["capacity"])
     return min(int(round(float(cfg["dead_rows"]["pruned_share"]) * n)), cap - n)
-
-
-def make_weights(cfg: dict, seed: int, device) -> tuple:
-    """(weights, alive) of the configuration's model, its used rows in the
-    order ``seed`` gives them."""
-    sc = cfg["scene"]
-    n, cap = int(cfg["n_gaussians"]), int(cfg["capacity"])
-    used = n + dead_rows(cfg)
-    k_rest = (int(cfg["sh_degree"]) + 1) ** 2 - 1
-    g = generator(LAYOUT_SEED, 1, device)
-    shares = np.array([r["share"] for r in sc["regions"]], np.float64)
-    sizes = np.floor(shares / shares.sum() * used).astype(np.int64)
-    sizes[0] += used - sizes.sum()
-    means, logs = [], []
-    for r, m in zip(sc["regions"], sizes):
-        means.append(_region_points(r, int(m), g, device))
-        mu, sd_g, sd_a = r["log_scale"]
-        common = mu + sd_g * torch.randn((int(m), 1), generator=g, device=device)
-        ls = common + sd_a * torch.randn((int(m), 3), generator=g, device=device)
-        if r.get("flat", 0.0):
-            ls[:, 0] -= r["flat"]
-        logs.append(ls)
-    op = sc["opacity"]
-    high = torch.rand(used, generator=g, device=device) < op["high_share"]
-    z = torch.randn(used, generator=g, device=device)
-    logit = torch.where(high, op["high_logit"][0] + op["high_logit"][1] * z,
-                        op["low_logit"][0] + op["low_logit"][1] * z)
-    live = torch.zeros(used, dtype=torch.bool, device=device)
-    live[torch.randperm(used, generator=g, device=device)[:n]] = True
-    mu, sd = cfg["dead_rows"]["pruned_logit"]
-    pruned = torch.clamp(mu + sd * torch.randn(used, generator=g, device=device),
-                         max=cfg["dead_rows"]["prune_below_logit"])
-    rgb = torch.rand((used, 3), generator=g, device=device) * 0.8 + 0.1
-    rows = {"means": torch.cat(means), "quats": torch.randn((used, 4), generator=g, device=device),
-            "scales": torch.cat(logs), "opacities": torch.where(live, logit, pruned),
-            "sh0": ((rgb - 0.5) / SH_C0)[:, None, :],
-            "shN": torch.randn((used, k_rest, 3), generator=g, device=device) * sc["sh_rest_std"]}
-    # the seed's order: regions, and live and pruned rows, interleave in
-    # the buffer, as a densified model's rows do
-    order = torch.randperm(used, generator=generator(seed, 1, device), device=device)
-    weights = {}
-    for k, x in rows.items():
-        weights[k] = torch.zeros((cap,) + tuple(x.shape[1:]), dtype=torch.float32, device=device)
-        weights[k][:used] = x[order]
-    alive = torch.zeros(cap, dtype=torch.bool, device=device)
-    alive[:used] = live[order]
-    return weights, alive
 
 
 def look_at(eye: np.ndarray, target: np.ndarray) -> np.ndarray:

@@ -13,7 +13,6 @@ import pytest
 import torch
 
 from benchmark import control as K
-from benchmark import drivers as D
 from benchmark import harness as H
 from benchmark.tests import bench_tiny as B
 
@@ -28,7 +27,7 @@ def _judged(numbers, cell):
                                              ("room.view_360", "room", "view_360")])
 def test_view_control_and_faults_fail(cell, config, mix):
     cfg = B.tiny_config(config)
-    got = K.view_readings(cfg, B.mix(mix), 12, CPU, precisions=("bf16",))
+    got = K.readings(cfg, B.mix(mix), 12, CPU, precisions=("bf16",))
     for name in ("bf16", "stale_answer"):
         assert not _judged(got[name], cell), (name, got[name])
 
@@ -40,7 +39,7 @@ def test_bf16_control_reads_finite_numbers(cell, config, mix):
     renders, and its numbers are finite."""
     cfg = B.tiny_config(config)
     cfg["scene"]["opacity"].update(high_share=0.9, high_logit=[8.0, 0.5])
-    got = K.view_readings(cfg, B.mix(mix), 14, CPU, precisions=("bf16",))
+    got = K.readings(cfg, B.mix(mix), 14, CPU, precisions=("bf16",))
     assert all(math.isfinite(v) for v in got["bf16"].values()), got["bf16"]
     assert not _judged(got["bf16"], cell), got["bf16"]
 
@@ -52,7 +51,7 @@ def test_control_fails_on_the_card(cell, config, mix):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     cfg = B.tiny_config(config, n=200_000, cap=262_144, w=640, h=432)
-    got = K.view_readings(cfg, B.mix(mix), 13, torch.device("cuda"))
+    got = K.readings(cfg, B.mix(mix), 13, torch.device("cuda"))
     assert all(math.isfinite(v) for v in got["bf16"].values()), got["bf16"]
     assert not _judged(got["bf16"], cell)
 
@@ -73,6 +72,6 @@ def test_an_altered_answer_is_caught(monkeypatch):
     monkeypatch.setattr(V.Renderer, "__call__", stale)
     cfg = B.tiny_config("garden")
     mix = B.mix("view", expect_requests=4, check_requests=3)
-    out = D.run_view(cfg, mix, 22, 2.0, False, CPU, lambda: 0.0)
+    out = H.load_kind("view").run(cfg, mix, 22, 2.0, False, CPU, lambda: 0.0)
     assert out["attempted"] >= 1
     assert not _judged(out["check"](), "garden.view")

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from benchmark import counts as C
+from benchmark.models import gaussians as G
 from benchmark.reference import render as R
 
 W, H = 32, 32
@@ -29,11 +30,16 @@ def _camera(f=20.0):
     return c2w, K
 
 
+def _render(raw, c2w, K):
+    rows = G.reference_rows(raw, torch.ones(raw["means"].shape[0], dtype=torch.bool))
+    return R.render(rows, c2w, K, W, H, R.camera("pinhole"), G.color)
+
+
 def test_needed_pairs_of_one_gaussian_are_the_pixels_it_reaches():
     """One gaussian: every pixel inside its tiles where alpha >= 1/255."""
     raw = _one(0.6, 0.15)
     c2w, K = _camera()
-    r = R.render(R.activate(raw), c2w, K, W, H)
+    r = _render(raw, c2w, K)
     # by hand: screen sigma^2 = (f s / z)^2 + 0.3, centred on the image
     s2 = (20.0 * 0.15 / 2.0) ** 2 + 0.3
     ys, xs = np.mgrid[0:H, 0:W] + 0.5
@@ -51,7 +57,7 @@ def test_needed_pairs_stop_where_transmittance_falls_below_1e_5():
     transmittance there is 1, 1e-3, 1e-6: two layers are needed."""
     raw = _one(0.99999, 4.0, z=2.0, n=4, spread=0.5)
     c2w, K = _camera(f=20.0)
-    r = R.render(R.activate(raw), c2w, K, W, H)
+    r = _render(raw, c2w, K)
     assert int(r.needed_px[H // 2, W // 2]) == 2
     assert float(r.alpha[H // 2, W // 2]) > 1 - 1e-8
 
@@ -64,5 +70,14 @@ def test_bounds_by_operations_and_by_bytes():
 
 
 def test_request_operations():
-    assert C.OPS_PROJECT_FWD == 399
-    assert C.view_ops(3, 100, 10) == 3 * 399 + 10 * 26 + 100 * 8
+    assert G.OPS_PER_GAUSSIAN == 399
+    assert C.view_ops(3, 100, 10, G.OPS_PER_GAUSSIAN) == 3 * 399 + 10 * 26 + 100 * 8
+
+
+def test_projection_bound_by_bytes_and_by_operations():
+    # SH 3: 236 bytes read per live gaussian, 10 fields written per visible one
+    assert G.BYTES_PER_GAUSSIAN == 236
+    assert C.project_bound_s(10 ** 6, 4 * 10 ** 5, G.OPS_PER_GAUSSIAN, G.BYTES_PER_GAUSSIAN) \
+        == pytest.approx((236e6 + 16e6) / 3.35e12)
+    # a model with far more operations than bytes is bound by its operations
+    assert C.project_bound_s(10 ** 6, 0, 10 ** 5, 4) == pytest.approx(1e11 / 67e12)

@@ -23,16 +23,20 @@ def _imports(path):
 
 
 def _files(sub):
+    """The Python files under ``benchmark/<sub>``, its camera models too."""
     base = os.path.join(B.BENCH, sub)
-    return [os.path.join(base, f) for f in sorted(os.listdir(base)) if f.endswith(".py")]
+    return sorted(os.path.join(d, f) for d, _, fs in os.walk(base) for f in fs
+                  if f.endswith(".py"))
 
 
 def test_reference_imports_nothing_of_the_measured_package():
-    for path in _files("reference"):
+    files = _files("reference")
+    assert any(os.path.basename(f) == "pinhole.py" for f in files)
+    for path in files:
         tops = set(_imports(path))
         assert not tops & {"splat_one_tpu_torch", "splat_one_tpu", "jax", "jaxlib", "flax"}, path
-        assert tops <= {"__future__", "contextlib", "math", "typing", "numpy", "torch",
-                        "benchmark"}, path
+        assert tops <= {"__future__", "contextlib", "importlib", "math", "os", "typing",
+                        "numpy", "torch", "benchmark"}, path
 
 
 def test_no_benchmark_file_imports_the_jax_stack():

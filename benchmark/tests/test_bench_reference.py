@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from benchmark import scene as S
+from benchmark.models import gaussians as G
 from benchmark.reference import render as R
 
 W, H = 40, 28
@@ -70,10 +71,11 @@ def _dense(proj, model, dtype=torch.float64):
 @pytest.mark.parametrize("model", ["pinhole", "spherical"])
 def test_render_matches_a_pixel_by_pixel_loop(model):
     raw = _scene(250, 1)
-    act = R.activate(raw)
+    act = G.reference_rows(raw, torch.ones(250, dtype=torch.bool))
     c2w, K = _camera(model)
-    ref = R.render(act, c2w, K, W, H, model, elems=1 << 14)
-    proj = R.project(act, c2w, K, W, H, model)
+    cam = R.camera(model)
+    ref = R.render(act, c2w, K, W, H, cam, G.color, elems=1 << 14)
+    proj = R.project(act, c2w, K, W, H, cam, G.color)
     assert int(proj.valid.sum()) > 50
     # one pixel at a time, sequentially, in float64 (no tile stops here)
     rgb_d, alpha_d = _dense(proj, model)
@@ -120,7 +122,8 @@ def test_tiles_stop_as_the_measured_renderer_stops(model):
     raw = _scene(3000, 4, opacity_logit=(4.0, 1.0), spread=0.6)
     raw["scales"] = raw["scales"] + 0.8
     c2w, K = _camera(model)
-    ref = R.render(R.activate(raw), c2w, K, W, H, model, elems=1 << 16)
+    act = G.reference_rows(raw, torch.ones(3000, dtype=torch.bool))
+    ref = R.render(act, c2w, K, W, H, R.camera(model), G.color, elems=1 << 16)
     rd = Renderer(raw, torch.ones(3000, dtype=torch.bool), W, H, 3, model, device="cpu")
     rgb, ed, alpha, info = rd.render(c2w, K, model)
     assert float(ref.alpha.min()) > 1 - 1e-4  # saturated: tiles stopped
