@@ -51,7 +51,11 @@ Phases (any failure exits non-zero and prints no result line):
      PROJ_COLOR_ATOL; at both sizes the kernel's time (CUDA events)
      beside its byte bound (with every row's SH, and with the valid
      rows' alone) and the plain version's time; a viewer request
-     launches it once;
+     launches it once; then garden's rows as an appearance model
+     (features, colour logits, gsplat's three-layer head): the head's
+     colours ([1, 2^23, 3], no SH) through the kernel against the plain
+     version, as above, and one viewer request through the head
+     launching project_fwd and stream_fwd once each;
   5. training at full width: (a) bench.py's fwd+bwd step on the same
      scene (loss sum(render) + sum(alpha), gradients into all five
      inputs): step time, Mpix/s, per-layer times, device trace, peak
@@ -1103,6 +1107,29 @@ def viewer_model(dev, cap, n_live, n_pruned, extent, seed=0):
     return params, alive
 
 
+def appearance_model(dev, params, n_images=185, seed=1):
+    """(params, app_params): a viewer model's rows as gsplat's appearance
+    model: its SH replaced by features U(0, 1) [32] and the logit of its
+    base colour; the head at gsplat's widths (embeddings [n_images, 16],
+    Linear(64, 64), Linear(64, 64), Linear(64, 3)), He-normal weights,
+    the last layer scaled down so that both the head and the logits move
+    the colour."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cap = params["means"].shape[0]
+    rgb = (params.pop("sh0")[:, 0] * 0.28209479177387814 + 0.5).clamp(0.02, 0.98)
+    del params["shN"]
+    params["features"] = torch.rand((cap, 32), generator=g, device=dev)
+    params["colors"] = torch.logit(rgb)
+    app = {"embeds": torch.randn((n_images, 16), generator=g, device=dev)}
+    for i, (di, do) in enumerate([(64, 64), (64, 64), (64, 3)]):
+        scale = (2.0 / di) ** 0.5 * (0.2 if do == 3 else 1.0)
+        app[f"w{i}"] = torch.randn((di, do), generator=g, device=dev) * scale
+        app[f"b{i}"] = 0.1 * torch.randn(do, generator=g, device=dev)
+    return params, app
+
+
 def projection_diffs(got, want):
     """Unequal elements of each field (floats by their bits), the colours'
     largest absolute difference."""
@@ -1124,6 +1151,7 @@ def projection_phase(dev, card):
     from splat_one_tpu_torch.app.viewer import Renderer
     from splat_one_tpu_torch.core.transforms import invert_se3
     from splat_one_tpu_torch.ops.projection import project_gaussians, project_gaussians_plain
+    from splat_one_tpu_torch.train.appearance import appearance_rgb
     from splat_one_tpu_torch.utils import cuda_build
 
     log(f"phase 4c: the projection kernel vs project_gaussians_plain | {card}")
@@ -1210,6 +1238,44 @@ def projection_phase(dev, card):
                     f"{pre}valid_bound_ms": valid_bound_ms})
         del rd, args, kw
         torch.cuda.empty_cache()
+
+    # garden's rows as an appearance model: the head's colours through the
+    # kernel's flat-colour branch (C = 1, no SH), then one request
+    name, model, W, H, focal, cap, n_live, n_pruned, extent, eye = PROJ_SIZES[0]
+    params, alive = viewer_model(dev, cap, n_live, n_pruned, extent)
+    params, app = appearance_model(dev, params)
+    rd = Renderer(params, alive, W, H, sh_degree=3, camera_model=model, device=dev,
+                  app_params=app)
+    del params, alive, app
+    c2w = yaw_pose(0.0, *eye)
+    K = np.float32([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]])
+    c2w_t = torch.as_tensor(c2w, device=dev)
+    with torch.no_grad():
+        colors = appearance_rgb(rd.app_params, rd.features, rd.color_logits, rd.image_ids,
+                                (rd.means - c2w_t[:3, 3])[None], 3)
+        require(tuple(colors.shape) == (1, cap, 3), f"head colours {tuple(colors.shape)}")
+        args = (rd.means, rd.quats, rd.scales, rd.opacities, invert_se3(c2w_t[None]),
+                torch.as_tensor(K, device=dev)[None], W, H)
+        got = project_gaussians(*args, colors=colors, camera_model=model)
+        want = project_gaussians_plain(*args, colors=colors, camera_model=model)
+        torch.cuda.synchronize()
+        ne, ce = check(f"{name} appearance", got, want)
+        n_valid = int(want.valid.sum())
+        spread = float(want.colors[want.valid].std())
+        del got, want, colors, args
+    log(f"  {name} appearance model {cap} rows ({n_valid} valid) {W}x{H}, the head's "
+        f"colours (std {spread:.3f} over the valid rows) with no SH: unequal "
+        f"{ {k: v for k, v in ne.items() if v} }, colours {ce:.2e} (atol {PROJ_COLOR_ATOL})")
+    require(spread > 0.05, f"{name} appearance: the head's colours hardly vary ({spread})")
+    cuda_build.launch_counts.clear()
+    rd(c2w, K, model)
+    torch.cuda.synchronize()
+    counts = {k: cuda_build.launch_counts.get(k, 0) for k in ("project_fwd", "stream_fwd")}
+    log(f"  {name} appearance: one viewer request launched {counts}")
+    require(counts == {"project_fwd": 1, "stream_fwd": 1},
+            f"{name} appearance: the viewer request launched {counts}, not one of each")
+    del rd
+    torch.cuda.empty_cache()
     row.update(bound_by="bytes", max_abs_err=worst["colors"], unequal=worst["unequal"],
                launches=1)
     return row

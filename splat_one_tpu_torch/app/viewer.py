@@ -4,9 +4,14 @@ Counterpart of ``splat_one_tpu/app/viewer.py``. ``ViewerServer`` is the
 same dependency-free HTTP server and page (WASD/QE fly-through, M toggles
 pinhole <-> spherical); the browser sends camera state and the server
 answers with a JPEG rendered on the GPU. ``make_render_fn`` builds the
-render function it serves from a JAX-format checkpoint
-(``load_checkpoint_params``): the computation of the JAX Trainer's
-``_render_view_alt``, RGB+ED through ``rasterization()``.
+render function it serves (``Renderer``) from a JAX-format checkpoint
+(``load_checkpoint_params``, ``load_checkpoint_app_params``): the
+computation of the JAX Trainer's ``_render_view_alt``, RGB+ED through
+``rasterization()``. It serves 3DGS models with SH colour (``sh0`` /
+``shN``), models trained with gsplat's appearance head (``Config.app_opt``:
+``features`` / ``colors`` and the head's parameters, coloured by the
+embedding of one training image, image 0 as ``Trainer.render_view``) and
+models with plain colour logits (``colors`` alone).
 ``serve_workdir`` serves a workdir's latest checkpoint through a
 ``Trainer.render_view`` (``workdir_server`` builds that server).
 """
@@ -26,10 +31,11 @@ import torch
 from splat_one_tpu_torch.core.transforms import invert_se3
 from splat_one_tpu_torch.data.opensfm import Parser, to_scene_data
 from splat_one_tpu_torch.render.rasterization import rasterization
+from splat_one_tpu_torch.train import appearance as APP
 from splat_one_tpu_torch.train.config import Config
 from splat_one_tpu_torch.train.trainer import Trainer
 from splat_one_tpu_torch.utils.device import resolve as resolve_device
-from splat_one_tpu_torch.utils.profiling import span
+from splat_one_tpu_torch.utils.profiling import count, span
 
 _PAGE = """<!DOCTYPE html>
 <html><head><title>splat-one-tpu viewer</title>
@@ -170,19 +176,35 @@ def params_from_numpy(np_params: dict, alive, device="cuda"):
     return params, torch.as_tensor(np.asarray(alive, bool), device=dev)
 
 
+def _entries(z, prefix: str) -> dict:
+    """The npz entries ``<prefix>['<name>']`` as {name: array}."""
+    return {k.split("['")[1].rstrip("']"): z[k]
+            for k in z.files if k.startswith(prefix + "[")}
+
+
 def load_checkpoint_params(path: str, device="cuda"):
     """Read the splat parameters and ``alive`` mask of a JAX Trainer
     checkpoint (``ckpt_<step>.npz``, keys ``params['means']``, ... and
     ``alive``)."""
     with np.load(path) as z:
-        np_params = {
-            k.split("['")[1].rstrip("']"): z[k]
-            for k in z.files if k.startswith("params[")
-        }
+        np_params = _entries(z, "params")
         alive = z["alive"]
     if not np_params:
         raise ValueError(f"{path}: no params['...'] entries")
     return params_from_numpy(np_params, alive, device)
+
+
+def load_checkpoint_app_params(path: str, device="cuda"):
+    """The appearance head's parameters of a checkpoint trained with
+    ``app_opt`` (keys ``app['embeds']``, ``app['w0']``, ...) as f32
+    tensors on ``device``, or None where it holds none."""
+    with np.load(path) as z:
+        np_app = _entries(z, "app")
+    if not np_app:
+        return None
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+            for k, v in np_app.items()}
 
 
 class Renderer:
@@ -190,10 +212,28 @@ class Renderer:
     function. Calling it returns the uint8 image ``ViewerServer`` serves;
     ``render`` returns the float rgb and expected depth. A call is the
     span ``viewer.request`` (``utils.profiling``), with ``viewer.inputs``,
-    ``rasterization``'s spans and ``viewer.frame`` inside."""
+    ``viewer.appearance`` (appearance models; count ``app_rows``, the rows
+    the head evaluated), ``rasterization``'s spans and ``viewer.frame``
+    inside.
+
+    The models it serves, by their parameters:
+
+    - ``sh0`` / ``shN``: 3DGS's SH colour of degree ``sh_degree``,
+      evaluated by the projection;
+    - ``features`` / ``colors`` with ``app_params`` (a Trainer's
+      ``app_opt``, gsplat's ``--app_opt``): per request, gsplat's colour
+      ``sigmoid(colors + head(embedding, features, SH basis of the
+      direction from the camera centre))``
+      (``train.appearance.appearance_rgb``) over every row, with the
+      embedding of training image 0 (as ``Trainer.render_view``) and the
+      SH basis of degree ``sh_degree``
+      (the Trainer's ``Config.sh_degree``); a head of any depth. Without
+      ``app_params`` such a model is refused: ``sigmoid(colors)`` alone
+      is not its colour;
+    - ``colors`` alone: ``sigmoid(colors)``."""
 
     def __init__(self, params, alive, width, height, sh_degree=3,
-                 camera_model="pinhole", device="cuda"):
+                 camera_model="pinhole", device="cuda", app_params=None):
         self.device = resolve_device(device)
         p = {k: v.to(self.device) for k, v in params.items()}
         alive = alive.to(self.device)
@@ -204,9 +244,21 @@ class Renderer:
         self.scales = torch.exp(p["scales"])
         self.opacities = torch.where(alive, torch.sigmoid(p["opacities"]),
                                      torch.zeros_like(p["opacities"]))
+        self.app_params = None
         if "sh0" in p:
             self.colors = torch.cat([p["sh0"], p["shN"]], dim=1)
             self.sh_degree = sh_degree
+        elif "features" in p:
+            if app_params is None:
+                raise ValueError("a model with features / colors is coloured by its "
+                                 "appearance head: pass app_params "
+                                 "(load_checkpoint_app_params reads a checkpoint's)")
+            self.app_params = {k: v.to(self.device) for k, v in app_params.items()}
+            self.features = p["features"]
+            self.color_logits = p["colors"]
+            self.image_ids = torch.zeros(1, dtype=torch.long, device=self.device)
+            self.app_degree = sh_degree
+            self.sh_degree = None
         else:
             self.colors = torch.sigmoid(p["colors"])
             self.sh_degree = None
@@ -219,8 +271,16 @@ class Renderer:
             c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=self.device)
             K = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
             viewmats = invert_se3(c2w[None])
+        if self.app_params is None:
+            colors = self.colors
+        else:
+            with span("viewer.appearance"):
+                count("app_rows", self.means.shape[0])
+                dirs = (self.means - c2w[:3, 3])[None]
+                colors = APP.appearance_rgb(self.app_params, self.features, self.color_logits,
+                                            self.image_ids, dirs, self.app_degree)
         out, alpha, info = rasterization(
-            self.means, self.quats, self.scales, self.opacities, self.colors,
+            self.means, self.quats, self.scales, self.opacities, colors,
             viewmats, K[None], self.width, self.height,
             sh_degree=self.sh_degree,
             camera_model=camera_model or self.camera_model,
@@ -236,12 +296,13 @@ class Renderer:
 
 
 def make_render_fn(params, alive, width, height, sh_degree=3,
-                   camera_model="pinhole", device="cuda") -> Renderer:
+                   camera_model="pinhole", device="cuda", app_params=None) -> Renderer:
     """The render function ``ViewerServer`` serves:
     ``fn(c2w, K, camera_model) -> uint8 [H, W, 3]``, with ``fn.render``
-    for the float rgb, depth and alpha. Runs on CUDA unless ``device="cpu"``."""
+    for the float rgb, depth and alpha; ``app_params`` as ``Renderer``
+    takes them. Runs on CUDA unless ``device="cpu"``."""
     return Renderer(params, alive, width, height, sh_degree, camera_model,
-                    device)
+                    device, app_params)
 
 
 def latest_checkpoint(workdir: str):

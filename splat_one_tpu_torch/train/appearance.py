@@ -3,8 +3,20 @@
 
 A per-image embedding, the per-gaussian features and the SH basis of the
 view direction go through a small MLP that predicts colour logits per
-(camera, gaussian); the Trainer adds the per-gaussian ``colors`` and
-takes the sigmoid (``Config.app_opt``).
+(camera, gaussian); the per-gaussian ``colors`` are added and the sigmoid
+taken (``appearance_rgb``): the Trainer's colours under
+``Config.app_opt``, and what ``app.viewer.Renderer`` serves of such a
+model. This is gsplat's ``AppearanceOptModule`` (``examples/utils.py``,
+``simple_trainer.py --app_opt``).
+
+Layer counting. gsplat's ``mlp_depth`` counts hidden layers: one
+``Linear(in, width)``, ``mlp_depth - 1`` times ``Linear(width, width)``,
+then ``Linear(width, 3)``, a ReLU after each but the last; at its default
+``mlp_depth=2`` that is three linear layers. ``init_appearance_params``,
+like the JAX package's, counts linear layers (``[in] + [width] *
+(mlp_depth - 1) + [3]``): at ``mlp_depth=2`` it builds two, one hidden
+layer. ``appearance_color`` evaluates whatever ``w0, w1, ...`` it is
+given, so it evaluates both heads.
 """
 
 from __future__ import annotations
@@ -55,3 +67,13 @@ def appearance_color(params: Params, features: torch.Tensor,  # [N, F]
             h = torch.relu(h)
         i += 1
     return h
+
+
+def appearance_rgb(params: Params, features: torch.Tensor,  # [N, F]
+                   colors: torch.Tensor,  # [N, 3] logits
+                   image_ids: torch.Tensor,  # [C] int
+                   dirs: torch.Tensor,  # [C, N, 3], unnormalized
+                   sh_degree: int = 3) -> torch.Tensor:
+    """The rendered colour ``[C, N, 3]``: ``sigmoid(colors + head)``."""
+    return torch.sigmoid(appearance_color(params, features, image_ids, dirs, sh_degree)
+                         + colors)

@@ -367,9 +367,8 @@ class Trainer:
             the appearance MLP's per-camera colours [B, CAP, 3]."""
             if cfg.app_opt:
                 dirs = params["means"][None] - camtoworlds[:, None, :3, 3]
-                logits = APP.appearance_color(app_params, params["features"],
-                                              image_ids, dirs, cfg.sh_degree)
-                return torch.sigmoid(logits + params["colors"][None]), None
+                return APP.appearance_rgb(app_params, params["features"], params["colors"],
+                                          image_ids, dirs, cfg.sh_degree), None
             active = min(step // cfg.sh_degree_interval, cfg.sh_degree)
             mask = (band_deg <= active).float()[None, :, None]
             return torch.cat([params["sh0"], params["shN"] * mask], dim=1), cfg.sh_degree
