@@ -9,8 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
   2. build: compile every kernel in splat_one_tpu_torch/csrc (nvcc,
      sm_90a, one process per source, all at once), timed, with ptxas
      register, shared-memory and spill figures per kernel; the forward
-     and backward compositing kernels and the projection kernel must not
-     spill; the backward
+     and backward compositing kernels, the projection kernel and the
+     pack kernel must not spill; the backward
      kernels' resident blocks per SM (from those figures and their
      launches' threads and shared memory);
   3. kernels vs plain versions on the card: small pinhole, spherical,
@@ -56,6 +56,12 @@ Phases (any failure exits non-zero and prints no result line):
      colours ([1, 2^23, 3], no SH) through the kernel against the plain
      version, as above, and one viewer request through the head
      launching project_fwd and stream_fwd once each;
+     (4d) the pack kernel (csrc/stream_pack.cu) against the plain pack
+     (pack_stream(build_field_columns(...))) on the projections of the
+     same garden and room models: the whole [packed_rows, 16] table bit
+     for bit, the kernel's time (CUDA events, 20 launches) beside its
+     byte bound and the plain version's time; a viewer request launches
+     it once;
   5. training at full width: (a) bench.py's fwd+bwd step on the same
      scene (loss sum(render) + sum(alpha), gradients into all five
      inputs): step time, Mpix/s, per-layer times, device trace, peak
@@ -258,7 +264,9 @@ Phases (any failure exits non-zero and prints no result line):
      launches on phase 7's path runs (the comparisons with the plain
      versions not counted; required > 0), and offset_ms, its time at a
      nonzero slab offset in phase 7 (pinhole, slab 1 of 4; device time for
-     keyed_perm, seg_reduce and seg_broadcast).
+     keyed_perm, seg_reduce and seg_broadcast). The projection's and the
+     pack's rows (phases 4c, 4d) carry their times at garden's and room's
+     sizes instead.
 """
 
 import contextlib
@@ -297,7 +305,7 @@ TILED_STEPS = 4  # phase 5c
 WD_SHOTS, WD_STEPS = 24, 40  # phase 5e: the workdir's shots, train_splats' steps
 REL_RENDER, REL_GRAD = 1e-5, 5e-4  # stream vs tiled (tests/test_stream_raster.py)
 NO_SPILL = ("stream_fwd", "stream_bwd", "tile_fwd", "tile_bwd",  # held to 0 B of spill
-            "project_fwd")
+            "project_fwd", "stream_pack")
 
 
 _T0 = time.perf_counter()
@@ -1278,6 +1286,76 @@ def projection_phase(dev, card):
     torch.cuda.empty_cache()
     row.update(bound_by="bytes", max_abs_err=worst["colors"], unequal=worst["unequal"],
                launches=1)
+    return row
+
+
+# ------------------------------------------------ phase 4d: the pack
+def pack_phase(dev, card):
+    """Phase 4d: the pack kernel (``stream_pack``) against the plain pack
+    (``pack_stream(build_field_columns(...))``) on the projections of the
+    viewer's garden- and room-sized models (``PROJ_SIZES``), the whole
+    [packed_rows, NF] table bit for bit; its time (CUDA events, 20
+    launches) beside its byte bound and the plain version's; one viewer
+    request's launches. Returns the kernel's row of the kernels line."""
+    import torch
+
+    from splat_one_tpu_torch.app.viewer import Renderer
+    from splat_one_tpu_torch.core.transforms import invert_se3
+    from splat_one_tpu_torch.ops import stream_isect as si
+    from splat_one_tpu_torch.ops.projection import project_gaussians
+    from splat_one_tpu_torch.utils import cuda_build
+
+    log(f"phase 4d: the pack kernel vs pack_stream(build_field_columns) | {card}")
+    row = {"name": "stream_pack", "route": "cuda",
+           "source": "splat_one_tpu_torch/csrc/stream_pack.cu", "replaces": None,
+           "library_ms": None, "max_abs_err": 0.0, "launches": 1}
+    for name, model, W, H, focal, cap, n_live, n_pruned, extent, eye in PROJ_SIZES:
+        params, alive = viewer_model(dev, cap, n_live, n_pruned, extent)
+        rd = Renderer(params, alive, W, H, sh_degree=3, camera_model=model, device=dev)
+        del params, alive
+        c2w = yaw_pose(0.0, *eye)
+        K = np.float32([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]])
+        with torch.no_grad():
+            proj = project_gaussians(
+                rd.means, rd.quats, rd.scales, rd.opacities,
+                invert_se3(torch.as_tensor(c2w, device=dev)[None]),
+                torch.as_tensor(K, device=dev)[None], W, H, sh_coeffs=rd.colors,
+                sh_degree=3, camera_model=model)
+            _, _, sw, sh = si.supertile_grid(W, H, 16)
+            caps = si.StreamCaps.choose(cap, 1, sw * sh)
+            isect = si.build_stream_intersections(proj, W, H, 16, caps, camera_model=model)
+            fields = (proj.means2d, proj.conics, proj.opacities, proj.colors, proj.depths,
+                      proj.radii)
+            got = si.pack_stream_fields(*fields, isect, caps)
+            want = si.pack_stream(si.build_field_columns(*fields), isect, caps)
+            torch.cuda.synchronize()
+            ne = (got.view(torch.int32) != want.view(torch.int32)).sum(0).tolist()
+            require(not any(ne), f"{name}: the pack kernel's table differs from the plain "
+                    f"pack's, unequal elements by column {ne}")
+            kept = int(isect.n_slots)
+            del got, want
+            ms = cuda_ms(lambda: si.pack_stream_fields(*fields, isect, caps), 20)
+            plain_ms = cuda_ms(lambda: si.pack_stream(si.build_field_columns(*fields),
+                                                      isect, caps), 20)
+        # every row written once (64 B) with its slot's index read (4 B),
+        # each kept slot's fields read once (44 B)
+        mb = (caps.packed_rows * 64 + caps.exp_cap * 4 + kept * 44) / 1e6
+        bound_ms = mb * 1e6 / HBM_BYTES_PER_S * 1e3
+        log(f"  {name} {model} {cap} rows, exp_cap {caps.exp_cap}, {kept} kept slots "
+            f"({100 * kept / caps.exp_cap:.1f} %) {W}x{H}: bit for bit; kernel {ms:.4f} ms "
+            f"(CUDA events, 20 launches), bound {bound_ms:.4f} ms by bytes ({mb:.1f} MB: "
+            f"{100 * bound_ms / ms:.1f} %); plain version {plain_ms:.3f} ms | {card}")
+        cuda_build.launch_counts.clear()
+        rd(c2w, K, model)
+        torch.cuda.synchronize()
+        n_req = cuda_build.launch_counts["stream_pack"]
+        log(f"  {name}: one viewer request launched stream_pack {n_req} time(s)")
+        require(n_req == 1, f"{name}: the viewer request did not launch stream_pack once")
+        pre = "" if model == "pinhole" else "spherical_"
+        row.update({f"{pre}ms": ms, f"{pre}plain_ms": plain_ms, f"{pre}bound_ms": bound_ms})
+        del rd, proj, isect, fields
+        torch.cuda.empty_cache()
+    row["bound_by"] = "bytes"
     return row
 
 
@@ -5427,6 +5505,8 @@ def main():
     torch.cuda.empty_cache()
     proj_row = projection_phase(dev, card)
     torch.cuda.empty_cache()
+    pack_row = pack_phase(dev, card)
+    torch.cuda.empty_cache()
     tile_fwd_row = tiled_render_phase(dev, card, sc, max_err)
     torch.cuda.empty_cache()
 
@@ -5460,7 +5540,7 @@ def main():
         row["slab_launches"] = slab_counts.get(row["name"], 0)
         require(row["slab_launches"] > 0, f"{row['name']} was not launched in phase 7")
         row["offset_ms"] = offset_ms[row["name"]]
-    kernels.append(proj_row)
+    kernels += [proj_row, pack_row]
 
     # phase 6: the kernels line, the card line, the result line
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,7 +9,10 @@ slot per 16 px tile. Pipeline:
      (ops.seg_broadcast: the default path, or the kernel under
      ``SPLAT_SEG_BROADCAST``),
   3. one stable sort by (supertile, depth), ties in expansion order,
-  4. searchsorted for per-supertile slot ranges.
+  4. searchsorted for per-supertile slot ranges;
+then the pack (``pack_stream_fields``) writes the slot-major field table
+the compositing kernels stream: the kernel ``csrc/stream_pack.cu`` on
+CUDA tensors, ``pack_stream(build_field_columns(...))`` on the CPU.
 Spherical cameras wrap in azimuth: unwrapped spans, ``mod sw`` at
 expansion. A supertile slab (``st_lo`` / ``n_st_local``, multi-GPU)
 enumerates only its own intersections: each parent's in-slab cells form
@@ -31,9 +34,11 @@ from typing import NamedTuple
 import torch
 
 from splat_one_tpu_torch.ops import seg_reduce
-from splat_one_tpu_torch.ops.projection import Projected, conic_ellipse_radii
+from splat_one_tpu_torch.ops.projection import Projected, _check_cuda, conic_ellipse_radii
 from splat_one_tpu_torch.ops.seg_broadcast import (SLAB, SlotGrid, expand_slots,
                                                    required_slab)
+from splat_one_tpu_torch.utils import cuda_build
+from splat_one_tpu_torch.utils.profiling import count
 
 # Supertile = SS x SS tiles of `tile_size` pixels.
 SS = 2
@@ -191,6 +196,64 @@ def pack_stream(fields: torch.Tensor, isect: StreamIsect,
     fp = torch.cat([fields, fields.new_zeros((1, NF))], dim=0)
     packed = fp[torch.clamp(isect.sorted_g.long(), max=fields.shape[0])]
     return torch.cat([packed, packed.new_zeros((caps.chunk, NF))], dim=0)
+
+
+def pack_stream_fields(means2d, conics, opacities, colors, depths, radii,
+                       isect: StreamIsect, caps: StreamCaps) -> torch.Tensor:
+    """[packed_rows, NF] slot-major stream table from the [C, N, ...]
+    projection outputs: ``pack_stream(build_field_columns(...))``. CPU
+    tensors take that plain composition; other tensors launch the kernel
+    (``stream_pack``, built from ``csrc/stream_pack.cu`` at first use),
+    whose checks raise, on contiguous copies (none on the viewer's paths).
+    The rows the kernel wrote, ``packed_rows`` or 0, are counted as
+    ``pack_kernel_rows`` on the open span."""
+    kernel = means2d.device.type != "cpu"
+    count("pack_kernel_rows", caps.packed_rows if kernel else 0)
+    if not kernel:
+        return pack_stream(build_field_columns(means2d, conics, opacities, colors,
+                                               depths, radii), isect, caps)
+    return stream_pack(*(t.contiguous() for t in (means2d, conics, opacities, colors,
+                                                    depths, radii, isect.sorted_g)), caps)
+
+
+def stream_pack(means2d, conics, opacities, colors, depths, radii, sorted_g,
+                caps: StreamCaps) -> torch.Tensor:
+    """The kernel -> [packed_rows, NF] f32, every row written: row p holds
+    slot p's gaussian ``sorted_g[p]`` (sentinel ``C * N``: zeros) in the
+    COL_* layout, the rows past ``exp_cap`` zeros. Inputs: f32 [C, N, 2],
+    [C, N, 3], [C, N], [C, N, 3], [C, N], [C, N] and int32 [exp_cap],
+    contiguous, on one CUDA device; raises on anything else before the
+    library is loaded."""
+    if opacities.dim() != 2:
+        raise ValueError(f"opacities must be [C, N], got {tuple(opacities.shape)}")
+    C, N = opacities.shape
+    named = [("means2d", means2d, (C, N, 2)), ("conics", conics, (C, N, 3)),
+             ("opacities", opacities, (C, N)), ("colors", colors, (C, N, 3)),
+             ("depths", depths, (C, N)), ("radii", radii, (C, N)),
+             ("sorted_g", sorted_g, (caps.exp_cap,))]
+    for name, t, shape in named:
+        dtype = torch.int32 if name == "sorted_g" else torch.float32
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    dev = means2d.device
+    _check_cuda(named, dev)
+    if C * N >= 2**31 or caps.packed_rows >= 2**31:
+        raise ValueError(f"{C * N} gaussians, {caps.packed_rows} rows: the kernel "
+                         "indexes them with 32-bit ints")
+    packed = torch.empty((caps.packed_rows, NF), dtype=torch.float32, device=dev)
+    lib = cuda_build.library("stream_pack")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.stream_pack(
+            sorted_g.data_ptr(), means2d.data_ptr(), conics.data_ptr(),
+            opacities.data_ptr(), colors.data_ptr(), depths.data_ptr(), radii.data_ptr(),
+            packed.data_ptr(), caps.exp_cap, C * N, caps.packed_rows, stream)
+    cuda_build.check(lib, rc, "stream_pack")
+    cuda_build.launch_counts["stream_pack"] += 1
+    return packed
 
 
 def parent_spans(proj: Projected, width: int, height: int, tile_size: int,

@@ -456,10 +456,11 @@ def _launch_stream_bwd(cfg: StreamCfg, st_starts, st_starts_al, packed, fwd_out,
 
 
 class _StreamComposite(torch.autograd.Function):
-    """Forward: field table + ``stream_fwd``. Backward: ``stream_bwd`` +
-    ``reduce_stream_grads``. The field table is built inside ``forward``
-    (no autograd graph), so the radii and the membership extents
-    (``COL_EXT_RX/RY``) get no gradient, as in the JAX custom VJP."""
+    """Forward: the packed stream table (``pack_stream_fields``) +
+    ``stream_fwd``. Backward: ``stream_bwd`` + ``reduce_stream_grads``.
+    The table is built inside ``forward`` (no autograd graph), so the radii
+    and the membership extents (``COL_EXT_RX/RY``) get no gradient, as in
+    the JAX custom VJP."""
 
     @staticmethod
     def forward(ctx, cfg, isect, tile_offset, means2d, conics, colors, opacities,
@@ -467,9 +468,8 @@ class _StreamComposite(torch.autograd.Function):
         if cfg.absgrad != (abs_dummy is not None):
             raise ValueError("cfg.absgrad must be set exactly when abs_dummy is passed")
         with span("build.pack"):
-            fields = si.build_field_columns(means2d, conics, opacities, colors,
-                                            depths, radii)
-            packed = si.pack_stream(fields, isect, cfg.caps)
+            packed = si.pack_stream_fields(means2d, conics, opacities, colors, depths,
+                                           radii, isect, cfg.caps)
         out = stream_fwd(cfg, isect.st_starts, packed, tile_offset)
         ctx.cfg = cfg
         ctx.tile_offset = tile_offset

@@ -63,6 +63,9 @@ SIGNATURES = {
     # opacities out, valid, n, c, k, nb, model, antialiased, width, height,
     # near_plane, far_plane, radius_clip, eps2d, stream
     "project_fwd": [_P] * 15 + [_I] * 8 + [_F] * 4 + [_P],
+    # sorted_g, means2d, conics, opacities, colors, depths, radii, packed,
+    # exp_cap, m0, rows, stream
+    "stream_pack": [_P] * 8 + [_I] * 3 + [_P],
 }
 
 launch_counts: collections.Counter = collections.Counter()
