@@ -74,11 +74,13 @@ Phases (any failure exits non-zero and prints no result line):
      + index_add_ and the parent's sort and gather; each kernel's device
      time and bound); (a-i) the same step through impl="tiled", its
      gradients against the stream step's, the tiled backward kernel and
-     the tiled reduction at these inputs; (a-ii) the stream build under
-     SPLAT_SEG_BROADCAST=cond with the observed window: the layout equal
-     to the default build's, the seg_broadcast kernel launched with no
-     fallback, its device time and bound, the kernel path beside the
-     default expansion in turns; (b) the port's
+     the tiled reduction at these inputs; (a-ii) the seg_broadcast kernel
+     path (expand_slots_windowed, one launch), which no render takes, at
+     the observed window (required_slab): its keys and owners equal the
+     default expansion's on the live slots, so that sorted they give the
+     build's layout; the kernel's device time from a cold L2 and back to
+     back, its bound, the kernel path beside the default expansion in
+     turns; (b) the port's
      Trainer, 1M random-init gaussians at 1280x720, SH degree 3, GT
      rendered by the port from 200k gaussians seen by 8 ring cameras,
      with a densification refine in its 6 steps, and its checkpoint
@@ -126,8 +128,9 @@ Phases (any failure exits non-zero and prints no result line):
      stream_fwd, stream_bwd (every row, also launched into NaNs),
      keyed_perm and seg_reduce (bits), and seg_broadcast (bits, at both poses: the spherical slab's
      segmented parents too)
-     against their plain versions, and every slab's build through the
-     seg_broadcast kernel equal to the default expansion's; (b) tile_fwd
+     against their plain versions, and every slab through the
+     seg_broadcast kernel path at its observed window, as in 5a-ii;
+     (b) tile_fwd
      and tile_bwd at a tile offset on phase 4b's pinhole layout (a slab of
      900 of its 3,600 tiles, built with tile_lo): the slab's forward equal
      to the whole layout's tiles, both kernels against their plain
@@ -259,10 +262,15 @@ Phases (any failure exits non-zero and prints no result line):
   6. the kernels line (JSON; the forward and backward compositing rows
      also carry spherical_ms and spherical_bound_ms; the seg_reduce row is the stream reduction path,
      with its kernel's and its tiled launch's figures beside), then the
-     card line, then the result line. Each row also carries
+     card line, then the result line. A row's launches are phase 5b's
+     Trainer's (required > 0) but where main_path is false:
+     seg_broadcast, the JAX kernel's counterpart, which no render
+     launches (0) and phase 5a-ii holds on its own path (path_launches).
+     Each row also carries
      stage_launches, its launches in phase 5e (i), slab_launches, its
      launches on phase 7's path runs (the comparisons with the plain
-     versions not counted; required > 0), and offset_ms, its time at a
+     versions not counted; for seg_broadcast its kernel path's; required
+     > 0), and offset_ms, its time at a
      nonzero slab offset in phase 7 (pinhole, slab 1 of 4; device time for
      keyed_perm, seg_reduce and seg_broadcast). The projection's and the
      pack's rows (phases 4c, 4d) carry their times at garden's and room's
@@ -701,9 +709,12 @@ def seg_broadcast_problem(proj, w, h, camera_model, st_lo=0, n_st_local=0):
 def compare_seg_broadcast(name, prob, grid, exp_cap, slab):
     """seg_broadcast kernel vs its plain version (every slot's key and
     owner equal) and, where every window covers its chunk, the kernel path
-    vs the default path on the live slots -> (plain ms, covered)."""
+    (expand_slots_windowed, one launch) vs the default path on the live
+    slots -> (plain ms, covered). Live keys and owners equal give the
+    default build's layout: the slots past them carry id cs and sort last."""
     import torch
     from splat_one_tpu_torch.ops import seg_broadcast as sgb
+    from splat_one_tpu_torch.utils import cuda_build
 
     okv, pbases, offs_pad = sgb.coverage_windows(prob[4], prob[6], exp_cap, slab)
     args = (*prob[:4], prob[5], offs_pad, pbases, exp_cap, grid, slab)
@@ -714,28 +725,18 @@ def compare_seg_broadcast(name, prob, grid, exp_cap, slab):
     covered = bool(okv.all())
     n_live = min(int(prob[4][-1] + prob[6][-1]), exp_cap)
     if covered:
-        got = sgb.expand_slots(*prob, exp_cap, grid, "kernel", slab)
-        want = sgb.expand_slots(*prob, exp_cap, grid, "xla")
+        n0 = cuda_build.launch_counts["seg_broadcast"]
+        got = sgb.expand_slots_windowed(*prob, exp_cap, grid, slab)
+        require(cuda_build.launch_counts["seg_broadcast"] == n0 + 1,
+                f"{name}: the kernel path launched seg_broadcast "
+                f"{cuda_build.launch_counts['seg_broadcast'] - n0} times")
+        want = sgb.expand_slots(*prob, exp_cap, grid)
         for g, w_, col in zip(got, want, ("key", "parent")):
             require(bool(torch.equal(g[:n_live].long(), w_[:n_live].long())),
                     f"{name}: seg_broadcast {col} differs from the default expansion")
     log(f"  {name}: seg_broadcast kernel equal to its plain version over {key_k.shape[0]} "
         f"slots (slab {slab}); {'kernel path equal to the default expansion on the ' + str(n_live) + ' live slots' if covered else 'a window does not cover its chunk'}")
     return plain_ms, covered
-
-
-@contextlib.contextmanager
-def seg_broadcast_path(value):
-    """SPLAT_SEG_BROADCAST set to ``value`` (None: unset) inside the block."""
-    old = os.environ.pop("SPLAT_SEG_BROADCAST", None)
-    if value is not None:
-        os.environ["SPLAT_SEG_BROADCAST"] = value
-    try:
-        yield
-    finally:
-        os.environ.pop("SPLAT_SEG_BROADCAST", None)
-        if old is not None:
-            os.environ["SPLAT_SEG_BROADCAST"] = old
 
 
 def ragged_problem(dev, mp=300_000, seed=3):
@@ -792,7 +793,6 @@ def tiled_kernel_checks(scenes, dev, max_err):
     import torch
     from splat_one_tpu_torch.ops import seg_broadcast as sgb
     from splat_one_tpu_torch.ops import stream_isect as si
-    from splat_one_tpu_torch.utils import cuda_build
 
     from splat_one_tpu_torch.ops import tile_raster as tr
 
@@ -821,19 +821,9 @@ def tiled_kernel_checks(scenes, dev, max_err):
         _, _, sw, sh = si.supertile_grid(sc["w"], sc["h"], 16)
         caps = si.StreamCaps.choose(N, C, C * sw * sh)
         prob, grid = seg_broadcast_problem(proj, sc["w"], sc["h"], sc["camera_model"])
-        compare_seg_broadcast(name, prob, grid, caps.exp_cap, caps.sb_slab)
-        with seg_broadcast_path(None):
-            want = si.build_stream_intersections(proj, sc["w"], sc["h"], 16, caps,
-                                                 camera_model=sc["camera_model"])
-        with seg_broadcast_path("cond"):
-            fb = dict(cuda_build.launch_counts).get("seg_broadcast_fallback", 0)
-            got = si.build_stream_intersections(proj, sc["w"], sc["h"], 16, caps,
-                                                camera_model=sc["camera_model"])
-            require(dict(cuda_build.launch_counts).get("seg_broadcast_fallback", 0) == fb,
-                    f"{name}: seg_broadcast fell back")
-        for f in want._fields:
-            require(bool(torch.equal(getattr(got, f), getattr(want, f))),
-                    f"{name}: stream layout field {f} differs under SPLAT_SEG_BROADCAST=cond")
+        slab = sgb.required_slab(prob[4], prob[6], caps.exp_cap)
+        _, covered = compare_seg_broadcast(name, prob, grid, caps.exp_cap, slab)
+        require(covered, f"{name}: the observed window does not cover every chunk")
         torch.cuda.synchronize()
     prob = ragged_problem(dev)
     n_isect = int(prob[4][-1] + prob[6][-1])
@@ -1905,7 +1895,7 @@ def training_phase(dev, card, sc, max_err):
     tile_bwd_row, tiled_red = tiled_step_phase(dev, card, leaves, vm, Kt, grads, max_err,
                                                sph.pop("tiled"))
     del sph
-    sb_row = seg_broadcast_phase(dev, card, leaves, vm, Kt, proj0, caps)
+    sb_row = seg_broadcast_phase(dev, card, proj0, caps)
     del grads, leaves
     torch.cuda.empty_cache()
 
@@ -1980,7 +1970,8 @@ def training_phase(dev, card, sc, max_err):
     tile_bwd_row["launches"] = tiled_counts.get("tile_bwd", 0)
     return {"launches": tcounts, "tiled_launches": tiled_counts, "scene": scene,
             "first_loss": losses[0],
-            "tile_bwd": tile_bwd_row, "seg_broadcast": sb_row, "kernels": [
+            "tile_bwd": tile_bwd_row,
+            "seg_broadcast": dict(sb_row, launches=tcounts.get("seg_broadcast", 0)), "kernels": [
         dict(name="stream_bwd", route="cuda", source="splat_one_tpu_torch/csrc/stream_bwd.cu",
              replaces="splat_one_tpu/ops/stream_raster.py:397",
              launches=tcounts.get("stream_bwd", 0), max_abs_err=max_err["stream_bwd"],
@@ -2240,55 +2231,39 @@ def tiled_step_phase(dev, card, leaves, vm, Kt, grads_stream, max_err, sph_input
                 library_ms=None, spherical_ms=sph_ms, spherical_bound_ms=sph_bound), tiled_red
 
 
-def seg_broadcast_phase(dev, card, leaves, vm, Kt, proj0, caps):
+def seg_broadcast_phase(dev, card, proj0, caps):
     """Phase 5a-ii (see the module docstring). Returns the kernels-line
-    row of seg_broadcast."""
+    row of seg_broadcast, its main-path launches left for phase 5b."""
     import torch
     from splat_one_tpu_torch.ops import seg_broadcast as sgb
-    from splat_one_tpu_torch.ops import stream_isect as si
-    from splat_one_tpu_torch.render.rasterization import rasterization
-    from splat_one_tpu_torch.utils import cuda_build
 
     W, H = W_SERVE, H_SERVE
-    slab = si.observed_sb_slab(proj0, W, H, 16, caps)
-    caps_sb = dataclasses.replace(caps, sb_slab=slab)
-    log(f"phase 5a-ii: stream build under SPLAT_SEG_BROADCAST=cond, observed window "
-        f"{slab} parents (observed_sb_slab), exp_cap {caps.exp_cap} | {card}")
-    with seg_broadcast_path(None):
-        want = si.build_stream_intersections(proj0, W, H, 16, caps_sb)
-    with seg_broadcast_path("cond"), torch.no_grad():
-        cuda_build.launch_counts.clear()
-        render, alpha, info = rasterization(*(x.detach() for x in leaves[:4]),
-                                            leaves[4].detach(), vm, Kt, W, H, sh_degree=3,
-                                            render_mode="RGB+ED", caps=caps_sb)
-        torch.cuda.synchronize()
-        counts = dict(cuda_build.launch_counts)
-        got = si.build_stream_intersections(proj0, W, H, 16, caps_sb)
-    require(counts.get("seg_broadcast", 0) == 1 and not counts.get("seg_broadcast_fallback"),
-            f"seg_broadcast launches on the cond path: {counts}")
-    require(not bool(info["overflow"]) and bool(torch.isfinite(render).all()), "cond render")
-    for f in want._fields:
-        require(bool(torch.equal(getattr(got, f), getattr(want, f))),
-                f"stream layout field {f} differs under SPLAT_SEG_BROADCAST=cond")
-    log(f"  rasterization under cond: launch counts {counts}; every StreamIsect field "
-        f"equal to the default build's (n_isect {int(want.n_isect)})")
     prob, grid = seg_broadcast_problem(proj0, W, H, "pinhole")
     exp_cap = caps.exp_cap
+    slab = sgb.required_slab(prob[4], prob[6], exp_cap)
+    log(f"phase 5a-ii: the seg_broadcast kernel path at the observed window, {slab} "
+        f"parents (required_slab), exp_cap {exp_cap} | {card}")
     plain_ms, covered = compare_seg_broadcast("1M pinhole", prob, grid, exp_cap, slab)
     require(covered, "the observed window does not cover the 1M problem")
     okv, pbases, offs_pad = sgb.coverage_windows(prob[4], prob[6], exp_cap, slab)
     args = (*prob[:4], prob[5], offs_pad, pbases, exp_cap, grid, slab)
     k_ev = cuda_ms(lambda: sgb.expand_parent_meta(*args), 20)
-    k_ms = device_ms(lambda: sgb.expand_parent_meta(*args), 20,
+    warm_ms = device_ms(lambda: sgb.expand_parent_meta(*args), 20, ("seg_broadcast_kernel",))
+    # each launch from a cold L2 (50 MB): a 256 MiB write before it evicts
+    # the last launch's inputs and outputs, as the byte bound assumes
+    scrub = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    k_ms = device_ms(lambda: (scrub.zero_(), sgb.expand_parent_meta(*args)), 20,
                      ("seg_broadcast_kernel",)) or k_ev
+    del scrub
     # the whole expansion by each path, slot keys included, in turns
     paths = {"kernel": [], "xla": []}
+    expand = {"kernel": lambda: sgb.expand_slots_windowed(*prob, exp_cap, grid, slab),
+              "xla": lambda: sgb.expand_slots(*prob, exp_cap, grid)}
     for which in ("kernel", "xla", "xla", "kernel"):
-        paths[which].append(cuda_ms(
-            lambda: sgb.expand_slots(*prob, exp_cap, grid, which, slab), 20))
+        paths[which].append(cuda_ms(expand[which], 20))
     path_ms, default_ms = (statistics.mean(paths[w]) for w in ("kernel", "xla"))
     mp = prob[0].shape[0]
-    n_isect = int(want.n_isect)
+    n_isect = int(prob[4][-1] + prob[6][-1])
     parents = torch.arange(mp, device=dev)
 
     def library():  # one PyTorch call for the slot -> parent map
@@ -2299,16 +2274,20 @@ def seg_broadcast_phase(dev, card, leaves, vm, Kt, proj0, caps):
     require(bool(torch.equal(library(), g_k[:n_isect].long())),
             "repeat_interleave expansion differs from the kernel's")
     nb = pbases.shape[0]
-    # the parents' four int64 columns, depth and offset read, pbases read,
-    # the 8-byte key and 4-byte owner of every slot written
-    sb_bytes = mp * (4 * 8 + 4 + 4) + nb * 4 + nb * sgb.CH * 12
+    # what the function must move: the offsets of the parents before the
+    # last live slot, the four int64 columns and the depth of those that
+    # own a live slot (no other parent's are read), pbases, and the 8-byte
+    # key and 4-byte owner of every slot written
+    reached = prob[4] < min(n_isect, exp_cap)
+    n_reached, n_owners = int(reached.sum()), int((reached & (prob[6] > 0)).sum())
+    sb_bytes = n_owners * (4 * 8 + 4) + n_reached * 4 + nb * 4 + nb * sgb.CH * 12
     bound_ms = sb_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"  seg_broadcast at 1M/720p: {k_ms:.4f} ms (device time, 20 launches; CUDA events "
-        f"through the wrapper {k_ev:.4f} ms); plain "
-        f"version {plain_ms:.1f} ms; bound {bound_ms:.4f} ms by bytes ({sb_bytes / 1e6:.1f} "
-        f"MB: {mp} parents' columns, {nb} x {sgb.CH} slots' keys and owners), "
-        f"{bound_ms / k_ms:.3f} of it; repeat_interleave (the slot -> parent map alone) "
-        f"{lib_ms:.4f} ms | {card}")
+    log(f"  seg_broadcast at 1M/720p: {k_ms:.4f} ms (device time, 20 launches, each from a "
+        f"cold L2; back to back {warm_ms or float('nan'):.4f} ms; CUDA events through the "
+        f"wrapper {k_ev:.4f} ms); plain version {plain_ms:.1f} ms; bound {bound_ms:.4f} ms by "
+        f"bytes ({sb_bytes / 1e6:.1f} MB: {n_owners} of {mp} parents own a live slot, "
+        f"{n_reached} offsets, {nb} x {sgb.CH} slots' keys and owners), {bound_ms / k_ms:.3f} "
+        f"of it; repeat_interleave (the slot -> parent map alone) {lib_ms:.4f} ms | {card}")
     log(f"  the expansion with the slots' sort keys, in turns (20 calls each): kernel path "
         f"(windows + kernel) {', '.join(f'{x:.4f}' for x in paths['kernel'])} ms; default "
         f"path (index_add_ + cumsum + gathers + decode) "
@@ -2316,8 +2295,8 @@ def seg_broadcast_phase(dev, card, leaves, vm, Kt, proj0, caps):
         f"{'no slower than' if path_ms <= default_ms else 'SLOWER than'} the default | {card}")
     return dict(name="seg_broadcast", route="cuda",
                 source="splat_one_tpu_torch/csrc/seg_broadcast.cu",
-                replaces="splat_one_tpu/ops/seg_broadcast.py:73",
-                launches=counts.get("seg_broadcast", 0), max_abs_err=0.0, ms=k_ms,
+                replaces="splat_one_tpu/ops/seg_broadcast.py:73", main_path=False,
+                path_launches=1, max_abs_err=0.0, ms=k_ms, warm_ms=warm_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=lib_ms,
                 events_ms=k_ev, path_ms=path_ms, default_path_ms=default_ms)
 
@@ -3153,21 +3132,12 @@ def slab_phase(dev, card, sc, scene, first_loss, max_err):
                  for i in range(n)]
         windows = [sgb.required_slab(p[4], p[6], caps.exp_cap) for p, _ in probs]
         prob, grid = probs[1]
-        compare_seg_broadcast(name, prob, grid, caps.exp_cap, windows[1])
-        # every slab's build through the seg_broadcast kernel (the observed
-        # windows): the default expansion's layout
-        want = [si.build_stream_intersections(psg, W, H, 16, caps, camera_model=cm,
-                                              st_lo=i * cs_local, n_st_local=cs_local)
-                for i in range(n)]
-        caps_k = dataclasses.replace(caps, sb_slab=max(windows))
-        with seg_broadcast_path("kernel"), on_path():
-            got = [si.build_stream_intersections(psg, W, H, 16, caps_k, camera_model=cm,
-                                                 st_lo=i * cs_local, n_st_local=cs_local)
-                   for i in range(n)]
-        for i, (a, b) in enumerate(zip(got, want)):
-            for f in a._fields:
-                require(bool(torch.equal(getattr(a, f), getattr(b, f))),
-                        f"{cm}: slab {i}: {f} through the seg_broadcast kernel differs")
+        # every slab through the seg_broadcast kernel path at its observed
+        # window: the default expansion's live keys and owners
+        for i, ((p, g), slab) in enumerate(zip(probs, windows)):
+            _, covered = compare_seg_broadcast(f"{cm}: slab {i}", p, g, caps.exp_cap, slab)
+            require(covered, f"{cm}: slab {i}: the observed window does not cover every chunk")
+            path["seg_broadcast"] += 1  # the kernel path's one launch, checked there
         log(f"  {cm}: the {n} slab builds through the seg_broadcast kernel (windows "
             f"{windows}{', segmented spherical parents' if grid.segmented else ''}) give the "
             f"default expansion's layouts")
@@ -3190,7 +3160,7 @@ def slab_phase(dev, card, sc, scene, first_loss, max_err):
                 lambda: sgb.expand_parent_meta(*sb_args), 20, ("seg_broadcast_kernel",)
             ) or cuda_ms(lambda: sgb.expand_parent_meta(*sb_args), 20)
             del isect, packed, out_k, gout, pg, perm, bounds
-        del proj, fields, g_cat, got, want
+        del proj, fields, g_cat
         torch.cuda.empty_cache()
         log(f"  {cm}: done at {time.perf_counter() - t_phase:.1f} s into the phase")
 
@@ -5533,7 +5503,11 @@ def main():
         dict(rows["seg_broadcast"], max_abs_err=max_err["seg_broadcast"]),
     ]
     for row in kernels:
-        require(row["launches"] > 0, f"{row['name']} was not launched on its path")
+        if row.setdefault("main_path", True):
+            require(row["launches"] > 0, f"{row['name']} was not launched on its path")
+        else:  # no render launches it; phase 5a-ii held its own path
+            require(row["launches"] == 0 and row["path_launches"] > 0,
+                    f"{row['name']}: {row['launches']} launches on the main path")
         # the train stage's own run (phase 5e (i)): steps + eval renders
         row["stage_launches"] = stage_counts.get(row["name"], 0)
         # phase 7's path runs; the row's time at a nonzero slab offset

@@ -35,7 +35,7 @@ from splat_one_tpu_torch.train import appearance as APP
 from splat_one_tpu_torch.train.config import Config
 from splat_one_tpu_torch.train.trainer import Trainer
 from splat_one_tpu_torch.utils.device import resolve as resolve_device
-from splat_one_tpu_torch.utils.profiling import count, span
+from splat_one_tpu_torch.utils.profiling import span
 
 _PAGE = """<!DOCTYPE html>
 <html><head><title>splat-one-tpu viewer</title>
@@ -212,9 +212,8 @@ class Renderer:
     function. Calling it returns the uint8 image ``ViewerServer`` serves;
     ``render`` returns the float rgb and expected depth. A call is the
     span ``viewer.request`` (``utils.profiling``), with ``viewer.inputs``,
-    ``viewer.appearance`` (appearance models; count ``app_rows``, the rows
-    the head evaluated), ``rasterization``'s spans and ``viewer.frame``
-    inside.
+    ``viewer.appearance`` (appearance models), ``rasterization``'s spans and
+    ``viewer.frame`` inside.
 
     The models it serves, by their parameters:
 
@@ -275,7 +274,6 @@ class Renderer:
             colors = self.colors
         else:
             with span("viewer.appearance"):
-                count("app_rows", self.means.shape[0])
                 dirs = (self.means - c2w[:3, 3])[None]
                 colors = APP.appearance_rgb(self.app_params, self.features, self.color_logits,
                                             self.image_ids, dirs, self.app_degree)

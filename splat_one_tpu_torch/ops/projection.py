@@ -24,7 +24,6 @@ import torch
 from splat_one_tpu_torch.core import cameras as cam
 from splat_one_tpu_torch.core import sh as shlib
 from splat_one_tpu_torch.utils import cuda_build
-from splat_one_tpu_torch.utils.profiling import count
 
 EPS2D = 0.3  # standard 3DGS screen-space low-pass filter
 
@@ -291,12 +290,9 @@ def project_gaussians(
     CUDA inputs that autograd does not record through (``records_grad``)
     launch the kernel (``project_fwd``, whose checks raise; the inputs
     staged contiguous and aligned first); everything else runs
-    ``project_gaussians_plain``. The rows the kernel projected, C * N or
-    0, are counted as ``proj_kernel_rows`` on the open span."""
-    kernel = means.device.type == "cuda" and not records_grad(
-        means, quats, scales, opacities, viewmats, Ks, sh_coeffs, colors)
-    count("proj_kernel_rows", viewmats.shape[0] * means.shape[0] if kernel else 0)
-    if not kernel:
+    ``project_gaussians_plain``."""
+    if means.device.type != "cuda" or records_grad(
+            means, quats, scales, opacities, viewmats, Ks, sh_coeffs, colors):
         return project_gaussians_plain(
             means, quats, scales, opacities, viewmats, Ks, width, height,
             sh_coeffs=sh_coeffs, sh_degree=sh_degree, colors=colors,

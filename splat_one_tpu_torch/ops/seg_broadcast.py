@@ -3,34 +3,28 @@
 Counterpart of ``splat_one_tpu/ops/seg_broadcast.py``. ``expand_slots``
 gives every slot of the stream build its sort key, ``(supertile id << 32)
 | f32 bits of the owning parent's depth`` (id ``C * NS`` at and past the
-total), and its owning parent, by one of two paths:
-- the default path: a marker ``index_add_`` at run starts, a cumsum to
-  the owning parent of every slot, one gather per metadata column
-  (``default_expansion``), then the decode of each slot's supertile
-  (``slot_keys``);
-- the kernel path (``expand_parent_meta``): the parents' runs are
-  contiguous and ascending, so the owners of each chunk of ``CH`` slots
-  lie in one window of ``slab`` parents from an ``ALIGN``-aligned base
-  (``coverage_windows``); each slot finds its parent by a search over the
-  window's offsets, reads the parent's columns and decodes its key in
-  one pass. CUDA tensors launch ``csrc/seg_broadcast.cu``; CPU tensors
-  run ``expand_parent_meta_plain`` (``window_expansion_plain``, then
-  ``slot_keys``).
+total), and its owning parent: a marker ``index_add_`` at run starts, a
+cumsum to the owning parent of every slot, one gather per metadata column
+(``default_expansion``), then the decode of each slot's supertile
+(``slot_keys``). The stream build takes this path on every device.
 
-``expand_slots`` picks the path as the JAX package does, from
-``force_path`` or ``SPLAT_SEG_BROADCAST`` (``xla``, the default, is the
-default path; ``kernel``; ``cond``: the kernel when every window covers
-its chunk, else the default path, counted in
-``cuda_build.launch_counts["seg_broadcast_fallback"]``). On live slots
-(below the total) both paths give the same bits; the stream layout built
-from them is the same under every path. The JAX kernel's bf16 byte and
-split columns (``build_vals``), which only make its one-hot MXU product
-exact, are not part of the port.
+``expand_slots_windowed``, which no render calls, is the counterpart of
+the JAX package's kernel path (``expand_parent_meta``): the parents'
+runs are contiguous and ascending, so the owners of each chunk of ``CH``
+slots lie in one window of ``slab`` parents from an ``ALIGN``-aligned
+base (``coverage_windows``); each slot finds its parent by a search over
+the window's offsets, reads the parent's columns and decodes its key in
+one pass. CUDA tensors launch ``csrc/seg_broadcast.cu``; CPU tensors run
+``expand_parent_meta_plain`` (``window_expansion_plain``, then
+``slot_keys``). Where every window covers its chunk, live slots (below
+the total) get the same bits from both, and the stream layout sorted
+from them is the same. The JAX kernel's bf16 byte and split columns
+(``build_vals``), which only make its one-hot MXU product exact, are not
+part of the port.
 """
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import numpy as np
@@ -99,9 +93,8 @@ def coverage_windows(offsets: torch.Tensor, counts: torch.Tensor, exp_cap: int,
 def required_slab(offsets, counts, exp_cap: int, margin: int = 256) -> int:
     """The observed window width: the max over slot chunks of the
     ``ALIGN``-aligned parent window a chunk needs, plus ``margin``, rounded
-    up to ``ALIGN``. Measured once on a warm-up problem and passed as
-    ``slab`` (``StreamCaps.sb_slab``); drift past it trips the ``cond``
-    guard to the default path."""
+    up to ``ALIGN``: the ``slab`` of ``expand_slots_windowed`` at which
+    every window of this problem covers its chunk."""
     offsets = _as_numpy(offsets)
     counts = _as_numpy(counts)
     total = int(offsets[-1]) + int(counts[-1])
@@ -246,36 +239,27 @@ def expand_parent_meta(sx0, sy0, span, ka, depth, offs_pad, pbases, exp_cap: int
 
 
 def expand_slots(sx0, sy0, span, ka, offsets, depth, counts, exp_cap: int,
-                 grid: SlotGrid, force_path=None, slab: int = SLAB):
+                 grid: SlotGrid):
     """Each of ``exp_cap`` slots' sort key and owning parent -> ``(key,
-    g_of_s)``: ``key`` int64 as ``slot_keys`` makes it, ``g_of_s`` int64
-    (default path) or int32 (kernel path).
+    g_of_s)``, int64 both: ``key`` as ``slot_keys`` makes it from
+    ``default_expansion``'s columns.
 
     ``offsets`` [MP] are the exclusive starts of the parents' slot runs,
-    ``counts`` their lengths; ``span`` is taken at least 1. Live slots
-    (below the total) get the same bits from both paths; slots past it get
-    id ``grid.cs`` and otherwise differ (the default path gives them the
-    last parent, the kernel the zero row). ``force_path``: None (read
-    ``SPLAT_SEG_BROADCAST``, default ``"xla"``), ``"xla"``, ``"kernel"``
-    or ``"cond"``."""
-    if force_path is None:
-        force_path = os.environ.get("SPLAT_SEG_BROADCAST", "xla")
-    if force_path not in ("xla", "kernel", "cond"):
-        raise ValueError(f"SPLAT_SEG_BROADCAST / force_path must be xla, kernel or "
-                         f"cond, got {force_path!r}")
+    ``counts`` their lengths; ``span`` is taken at least 1. Slots at or
+    past the total get id ``grid.cs`` and the last parent."""
+    n_live = torch.clamp(offsets[-1] + counts[-1], max=exp_cap)
+    return slot_keys(default_expansion(sx0, sy0, span, ka, offsets, depth, exp_cap),
+                     n_live, grid)
 
-    def default():
-        n_live = torch.clamp(offsets[-1] + counts[-1], max=exp_cap)
-        return slot_keys(default_expansion(sx0, sy0, span, ka, offsets, depth, exp_cap),
-                         n_live, grid)
 
-    if force_path == "xla":
-        return default()
-    okv, pbases, offs_pad = coverage_windows(offsets, counts, exp_cap, slab)
-    # the guard reads one flag on the host: a sync on this opt-in path only
-    if force_path == "cond" and not bool(okv.all()):
-        cuda_build.launch_counts["seg_broadcast_fallback"] += 1
-        return default()
+def expand_slots_windowed(sx0, sy0, span, ka, offsets, depth, counts, exp_cap: int,
+                          grid: SlotGrid, slab: int = SLAB):
+    """``expand_slots`` through the windowed search of ``expand_parent_meta``
+    at ``slab`` parents a window -> ``(key int64, g_of_s int32)`` [exp_cap].
+    Where every window covers its chunk (``coverage_windows``), live slots
+    get ``expand_slots``'s bits; slots past the total, and slots a window
+    misses, are decoded from the zero row (span 1, parent 0)."""
+    _, pbases, offs_pad = coverage_windows(offsets, counts, exp_cap, slab)
     key, g = expand_parent_meta(sx0, sy0, span, ka, depth, offs_pad, pbases, exp_cap,
                                 grid, slab)
     return key[:exp_cap], g[:exp_cap]

@@ -6,10 +6,9 @@ stream each supertile's depth-sorted slot range once and gate every
 slot per 16 px tile. Pipeline:
   1. per-(camera, gaussian) supertile bbox spans -> counts -> offsets,
   2. expansion to slots and each slot's (supertile id, depth) sort key
-     (ops.seg_broadcast: the default path, or the kernel under
-     ``SPLAT_SEG_BROADCAST``),
-  3. one stable sort by (supertile, depth), ties in expansion order,
-  4. searchsorted for per-supertile slot ranges;
+     (``ops.seg_broadcast.expand_slots``),
+  3. one stable sort by (supertile, depth), ties in expansion order, and
+     searchsorted for per-supertile slot ranges (``sort_slots``);
 then the pack (``pack_stream_fields``) writes the slot-major field table
 the compositing kernels stream: the kernel ``csrc/stream_pack.cu`` on
 CUDA tensors, ``pack_stream(build_field_columns(...))`` on the CPU.
@@ -35,10 +34,8 @@ import torch
 
 from splat_one_tpu_torch.ops import seg_reduce
 from splat_one_tpu_torch.ops.projection import Projected, _check_cuda, conic_ellipse_radii
-from splat_one_tpu_torch.ops.seg_broadcast import (SLAB, SlotGrid, expand_slots,
-                                                   required_slab)
+from splat_one_tpu_torch.ops.seg_broadcast import SlotGrid, expand_slots
 from splat_one_tpu_torch.utils import cuda_build
-from splat_one_tpu_torch.utils.profiling import count
 
 # Supertile = SS x SS tiles of `tile_size` pixels.
 SS = 2
@@ -88,10 +85,6 @@ class StreamCaps:
     n_supertiles: int  # C * SH * SW
     chunk: int = 128  # kernel chunk G
     ss: int = SS  # tiles per supertile side
-    # parent-window width of the seg_broadcast kernel path (its per-chunk
-    # search work scales with it); sized from a warm-up build by
-    # ``observed_sb_slab``, as exp_cap by ``choose_observed``
-    sb_slab: int = SLAB
 
     @property
     def pad_cap(self) -> int:
@@ -119,14 +112,13 @@ class StreamCaps:
 
     @staticmethod
     def choose_observed(n_isect: int, n_supertiles: int, chunk: int = 128,
-                        slack: float = 1.08, ss: int = SS, sb_slab: int = SLAB):
+                        slack: float = 1.08, ss: int = SS):
         """Caps sized from a measured intersection count (a warm-up build
-        with generous caps, or the previous render's ``info["n_isect"]``)
-        and, optionally, a measured ``observed_sb_slab``."""
+        with generous caps, or the previous render's ``info["n_isect"]``)."""
         exp_cap = max(int(n_isect * slack), 1024)
         exp_cap = -(-exp_cap // chunk) * chunk
         return StreamCaps(exp_cap=exp_cap, n_supertiles=n_supertiles,
-                          chunk=chunk, ss=ss, sb_slab=sb_slab)
+                          chunk=chunk, ss=ss)
 
 
 class StreamIsect(NamedTuple):
@@ -204,12 +196,8 @@ def pack_stream_fields(means2d, conics, opacities, colors, depths, radii,
     projection outputs: ``pack_stream(build_field_columns(...))``. CPU
     tensors take that plain composition; other tensors launch the kernel
     (``stream_pack``, built from ``csrc/stream_pack.cu`` at first use),
-    whose checks raise, on contiguous copies (none on the viewer's paths).
-    The rows the kernel wrote, ``packed_rows`` or 0, are counted as
-    ``pack_kernel_rows`` on the open span."""
-    kernel = means2d.device.type != "cpu"
-    count("pack_kernel_rows", caps.packed_rows if kernel else 0)
-    if not kernel:
+    whose checks raise, on contiguous copies (none on the viewer's paths)."""
+    if means2d.device.type == "cpu":
         return pack_stream(build_field_columns(means2d, conics, opacities, colors,
                                                depths, radii), isect, caps)
     return stream_pack(*(t.contiguous() for t in (means2d, conics, opacities, colors,
@@ -288,18 +276,6 @@ def parent_spans(proj: Projected, width: int, height: int, tile_size: int,
     return sx0, span_x, sy0, span_y
 
 
-def observed_sb_slab(proj: Projected, width: int, height: int, tile_size: int,
-                     caps: StreamCaps, camera_model: str = "pinhole") -> int:
-    """The seg_broadcast window width this projection needs
-    (``seg_broadcast.required_slab``), for
-    ``StreamCaps.choose_observed(sb_slab=...)``."""
-    sx0, span_x, sy0, span_y = parent_spans(proj, width, height, tile_size,
-                                            caps.ss, camera_model)
-    counts = span_x * span_y
-    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1]])
-    return required_slab(offsets, counts, caps.exp_cap)
-
-
 def slot_parents(proj: Projected, width: int, height: int, tile_size: int, ss: int,
                  camera_model: str = "pinhole", st_lo: int = 0, n_st_local: int = 0):
     """The expansion's parents and their slot runs -> ``(sx0, sy0, span,
@@ -369,46 +345,40 @@ def build_stream_intersections(
     of the flattened (camera, supertile) grid are kept, re-based to 0: one
     slab of the supertile-sharded multi-GPU path. ``n_isect`` then counts
     the slab's intersections, so ``caps.exp_cap`` is a per-slab budget."""
-    dev = proj.depths.device
-    G = caps.chunk
     EXP = caps.exp_cap
     sx0, sy0, span_p, kA, offsets, depth_p, counts, grid = slot_parents(
         proj, width, height, tile_size, caps.ss, camera_model, st_lo, n_st_local)
-    CS = grid.cs
-    M0 = proj.depths.numel()
     n_isect = offsets[-1] + counts[-1]
-    overflow = n_isect > EXP
 
     # each slot's (supertile id - st_lo | f32 bits of the depth) key: live
     # depths are positive, so their bit patterns order like their values;
     # slots past the total or outside the slab carry id CS and sort last
-    key, g_of_s = expand_slots(sx0, sy0, span_p, kA, offsets, depth_p, counts, EXP, grid,
-                               slab=caps.sb_slab)
-    # one stable sort on that exact int64 key: ties keep expansion order, as
-    # the JAX package's stable two-key sort does
+    key, g_of_s = expand_slots(sx0, sy0, span_p, kA, offsets, depth_p, counts, EXP, grid)
+    sorted_g, st_starts, st_starts_al, n_slots = sort_slots(
+        key, g_of_s, grid.cs, caps.chunk, proj.depths.numel())
+    return StreamIsect(sorted_g=sorted_g, st_starts=st_starts, st_starts_al=st_starts_al,
+                       n_isect=n_isect, n_slots=n_slots, overflow=n_isect > EXP)
+
+
+def sort_slots(key: torch.Tensor, g_of_s: torch.Tensor, cs: int, chunk: int, m0: int):
+    """The layout from the slots' keys and owners -> ``(sorted_g,
+    st_starts, st_starts_al, n_slots)`` of ``StreamIsect``: one stable sort
+    on the exact int64 key, ties in expansion order as the JAX package's
+    stable two-key sort keeps them, then each supertile's slot range."""
+    dev = key.device
     sorted_key, order = torch.sort(key, stable=True)
-    sorted_st = sorted_key >> 32
     sorted_g = g_of_s[order]
-
     st_starts = torch.searchsorted(
-        sorted_st, torch.arange(CS + 1, dtype=torch.int64, device=dev),
-        right=False)
+        sorted_key >> 32, torch.arange(cs + 1, dtype=torch.int64, device=dev), right=False)
     st_counts = st_starts[1:] - st_starts[:-1]
-    lead = st_starts[:-1] % G
-    counts_al = -torch.div(-(lead + st_counts), G, rounding_mode="floor") * G
+    lead = st_starts[:-1] % chunk
+    counts_al = -torch.div(-(lead + st_counts), chunk, rounding_mode="floor") * chunk
     st_starts_al = torch.cat([counts_al.new_zeros(1), torch.cumsum(counts_al, 0)])
-
-    # the kept slots (id below CS) sort first: the mask is positional
+    # the kept slots (id below cs) sort first: the mask is positional
     n_slots = st_starts[-1]
-    sorted_ok = torch.arange(EXP, dtype=torch.int64, device=dev) < n_slots
-    return StreamIsect(
-        sorted_g=torch.where(sorted_ok, sorted_g, torch.full_like(sorted_g, M0)).int(),
-        st_starts=st_starts.int(),
-        st_starts_al=st_starts_al.int(),
-        n_isect=n_isect,
-        n_slots=n_slots,
-        overflow=overflow,
-    )
+    sorted_ok = torch.arange(key.shape[0], dtype=torch.int64, device=dev) < n_slots
+    return (torch.where(sorted_ok, sorted_g, torch.full_like(sorted_g, m0)).int(),
+            st_starts.int(), st_starts_al.int(), n_slots)
 
 
 def sort_grad_rows(pgrads: torch.Tensor, num_flat: int):

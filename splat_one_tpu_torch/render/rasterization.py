@@ -159,7 +159,6 @@ def rasterization(
         sh = colors if sh_degree is not None else None
         flat_colors = colors if sh_degree is None else None
         with span("render.project"):
-            count("rows", N)
             proj = project_gaussians(
                 means, quats, scales, opacities, viewmats, Ks, width, height,
                 sh_coeffs=sh, sh_degree=(sh_degree or 0), colors=flat_colors,

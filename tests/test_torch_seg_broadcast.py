@@ -11,18 +11,16 @@ zero-count parents and slots past the total:
   live slots those of the default path and of a numpy reference, at the
   default and at a tight slab, for adversarial depths too;
 - the kernel path's output, each slot's sort key and owning parent
-  (``expand_slots``; its plain version on the CPU), is bit-equal to the
-  decode (``slot_keys``) of those columns: of JAX's kernel path on every
-  slot, of the default path and the reference on live slots;
-- ``cond`` takes the kernel where every window covers its chunk and falls
-  back to the default path (counted) where a zero-count run outgrows the
-  window;
-- the stream builder gives the same layout under every path.
+  (``expand_slots_windowed``; its plain version on the CPU), is
+  bit-equal to the decode (``slot_keys``) of those columns: of JAX's
+  kernel path on every slot, of the default path (``expand_slots``) and
+  the reference on live slots;
+- ``coverage_windows`` flags the chunks whose window a zero-count run
+  outgrows, as JAX's does;
+- the keys of the kernel path, sorted, give the stream builder's layout.
 The CUDA kernel is held against the plain version bit for bit by the
 ``gpu`` tests (ragged runs and the small scenes' stream builds).
 """
-
-import dataclasses
 
 import numpy as np
 import pytest
@@ -119,13 +117,11 @@ def test_kernel_path_matches_reference(zero_frac):
     assert (meta[2][n_isect:] == 1).all() and not meta[6][n_isect:].any()
     # the keys and owners
     before = dict(cuda_build.launch_counts)
-    got = tsb.expand_slots(*tp, exp_cap, GRID, "kernel")
+    got = tsb.expand_slots_windowed(*tp, exp_cap, GRID)
     assert dict(cuda_build.launch_counts) == before  # CPU: plain version
     _assert_keys_equal(got, _keys_of(want, n_isect, exp_cap), exp_cap)
     _assert_keys_equal(got, _keys_of(ref, n_isect, exp_cap), n_isect)
-    _assert_keys_equal(got, tsb.expand_slots(*tp, exp_cap, GRID, "xla"), n_isect)
-    _assert_keys_equal(tsb.expand_slots(*tp, exp_cap, GRID, "cond"),
-                       _keys_of(ref, n_isect, exp_cap), n_isect)
+    _assert_keys_equal(got, tsb.expand_slots(*tp, exp_cap, GRID), n_isect)
     assert ((got[0][n_isect:] >> 32) == GRID.cs).all() and not got[1][n_isect:].any()
 
 
@@ -135,17 +131,16 @@ def test_tail_chunks_count_as_covered():
     n_isect = int(prob[4][-1] + prob[6][-1])
     exp_cap = -(-int(n_isect * 3.0) // 1024) * 1024  # a long tail
     tp = _torch(prob)
-    assert bool(tsb.coverage_windows(tp[4], tp[6], exp_cap)[0].all())
-    fb = cuda_build.launch_counts["seg_broadcast_fallback"]
-    _assert_keys_equal(tsb.expand_slots(*tp, exp_cap, GRID, "cond"),
+    okv = tsb.coverage_windows(tp[4], tp[6], exp_cap)[0]
+    assert okv.shape[0] * tsb.CH > 2 * n_isect and bool(okv.all())
+    _assert_keys_equal(tsb.expand_slots_windowed(*tp, exp_cap, GRID),
                        _keys_of(_reference(*prob, exp_cap), n_isect, exp_cap), n_isect)
-    assert cuda_build.launch_counts["seg_broadcast_fallback"] == fb
 
 
 def test_overflow_falls_back():
-    """A zero-count run longer than the window trips the guard: ``cond``
-    takes (and counts) the default path, exact; the forced kernel path
-    leaves the uncovered slots as zero rows, as in JAX."""
+    """A zero-count run longer than the window leaves chunks uncovered,
+    flagged as JAX flags them; the default path stays exact there, and
+    the kernel path leaves the uncovered slots as zero rows, as in JAX."""
     import jax.numpy as jnp
     from splat_one_tpu.ops import seg_broadcast as jsb
 
@@ -163,14 +158,12 @@ def test_overflow_falls_back():
                                               exp_cap)
     np.testing.assert_array_equal(okv.numpy(), np.asarray(okv_j))
     np.testing.assert_array_equal(pbases.numpy(), np.asarray(pbases_j))
-    assert not bool(okv.all())
-    fb = cuda_build.launch_counts["seg_broadcast_fallback"]
-    _assert_keys_equal(tsb.expand_slots(*tp, exp_cap, GRID, "cond"),
+    assert 0 < int((~okv).sum()) < okv.shape[0]
+    _assert_keys_equal(tsb.expand_slots(*tp, exp_cap, GRID),
                        _keys_of(_reference(*prob, exp_cap), n_isect, exp_cap), n_isect)
-    assert cuda_build.launch_counts["seg_broadcast_fallback"] == fb + 1
     want = jsb.expand_meta_streamed(*map(jnp.asarray, prob), exp_cap, "kernel")
     _assert_live_equal(_window_meta(tp, exp_cap), want, exp_cap)
-    _assert_keys_equal(tsb.expand_slots(*tp, exp_cap, GRID, "kernel"),
+    _assert_keys_equal(tsb.expand_slots_windowed(*tp, exp_cap, GRID),
                        _keys_of(want, n_isect, exp_cap), exp_cap)
 
 
@@ -196,16 +189,27 @@ def test_tight_slab_and_depth_bits():
     _assert_live_equal(meta, ref, n_isect)
     assert meta[5].dtype == torch.float32
     grid = GRID._replace(wrap=True)
-    got = tsb.expand_slots(*tp, exp_cap, grid, "kernel", slab)
+    got = tsb.expand_slots_windowed(*tp, exp_cap, grid, slab)
     _assert_keys_equal(got, _keys_of(ref, n_isect, exp_cap, grid), n_isect)
     bits = prob[5].view(np.uint32)[np.asarray(ref[6])[:n_isect]]
     np.testing.assert_array_equal(got[0].numpy()[:n_isect] & 0xFFFFFFFF, bits)
 
 
-@pytest.mark.parametrize("path", ["kernel", "cond"])
-def test_stream_layout_under_every_path(path, monkeypatch):
-    """The stream builder, with ``SPLAT_SEG_BROADCAST`` set and with the
-    observed window (``observed_sb_slab``), gives the default layout."""
+def _assert_windowed_layout(prob, grid, exp_cap, slab, chunk, m0, isect):
+    """``expand_slots_windowed``'s keys and owners at ``slab``, through the
+    build's own stable sort (``sort_slots``), give the build's layout."""
+    got = tsi.sort_slots(*tsb.expand_slots_windowed(*prob, exp_cap, grid, slab), grid.cs,
+                         chunk, m0)
+    for a, b in zip(got, (isect.sorted_g, isect.st_starts, isect.st_starts_al,
+                          isect.n_slots)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("window", ["default", "required"])
+def test_stream_layout_under_every_path(window):
+    """The kernel path's keys (its plain version here), at the default
+    window and at the observed one (``required_slab``), sorted stably,
+    give the stream builder's layout."""
     from splat_one_tpu_torch.ops import projection as tp
     from test_torch_stream_raster import _port_inputs, _scene
 
@@ -216,17 +220,15 @@ def test_stream_layout_under_every_path(path, monkeypatch):
     proj = tp.project_gaussians(*map(torch.as_tensor, (means, quats, scales, opac,
                                                        viewmats, Ks)),
                                 w, h, colors=torch.as_tensor(colors), camera_model=model)
-    caps = cfg.caps
-    slab = tsi.observed_sb_slab(proj, w, h, 16, caps, model)
-    assert slab % tsb.ALIGN == 0 and slab < tsb.SLAB
-    monkeypatch.setenv("SPLAT_SEG_BROADCAST", path)
-    for c in (caps, dataclasses.replace(caps, sb_slab=slab)):
-        got = tsi.build_stream_intersections(proj, w, h, 16, c, camera_model=model)
-        for f in isect._fields:
-            assert torch.equal(getattr(got, f), getattr(isect, f)), f
-    monkeypatch.setenv("SPLAT_SEG_BROADCAST", "onehot")
-    with pytest.raises(ValueError):
-        tsi.build_stream_intersections(proj, w, h, 16, caps, camera_model=model)
+    exp_cap = cfg.caps.exp_cap
+    *prob, grid = tsi.slot_parents(proj, w, h, 16, tsi.SS, model)
+    slab = tsb.SLAB
+    if window == "required":
+        slab = tsb.required_slab(prob[4], prob[6], exp_cap)
+        assert slab % tsb.ALIGN == 0 and slab < tsb.SLAB
+    assert bool(tsb.coverage_windows(prob[4], prob[6], exp_cap, slab)[0].all())
+    _assert_windowed_layout(prob, grid, exp_cap, slab, cfg.caps.chunk, proj.depths.numel(),
+                            isect)
 
 
 def _gpu():
@@ -260,20 +262,19 @@ def test_cuda_kernel_matches_plain(zero_frac):
     tp = _torch(prob, "cuda")
     for grid in (GRID, GRID._replace(wrap=True)):
         _check_kernel(tp, exp_cap, grid)
-    _assert_keys_equal(tsb.expand_slots(*tp, exp_cap, GRID, "kernel"),
+    _assert_keys_equal(tsb.expand_slots_windowed(*tp, exp_cap, GRID),
                        _keys_of(_reference(*prob, exp_cap), n_isect, exp_cap), n_isect)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(GPU_CASES))
-def test_cuda_kernel_on_scenes(case, monkeypatch):
+def test_cuda_kernel_on_scenes(case):
     """On each small scene's stream build: the kernel's bits equal the plain
-    version's, and the layout built through it the default one."""
+    version's, and the layout sorted from its keys the build's."""
     _gpu()
     from test_torch_stream_raster import _port_inputs
 
     scene, model = GPU_CASES[case]
-    monkeypatch.delenv("SPLAT_SEG_BROADCAST", raising=False)
     cfg, isect, _ = _port_inputs(scene(), model, "cuda")
     means, quats, scales, opac, colors, viewmats, Ks, w, h = scene()
     from splat_one_tpu_torch.ops import projection as tp
@@ -290,7 +291,7 @@ def test_cuda_kernel_on_scenes(case, monkeypatch):
     grid = tsb.SlotGrid(n=N, sw=cfg.sw, ns=cfg.sw * cfg.sh, cs=cfg.cs,
                         wrap=model == "spherical")
     _check_kernel(prob, cfg.caps.exp_cap, grid)
-    monkeypatch.setenv("SPLAT_SEG_BROADCAST", "kernel")
-    got = tsi.build_stream_intersections(proj, w, h, 16, cfg.caps, camera_model=model)
-    for f in isect._fields:
-        assert torch.equal(getattr(got, f), getattr(isect, f)), f
+    n0 = cuda_build.launch_counts["seg_broadcast"]
+    _assert_windowed_layout(prob, grid, cfg.caps.exp_cap, tsb.SLAB, cfg.caps.chunk, C * N,
+                            isect)
+    assert cuda_build.launch_counts["seg_broadcast"] == n0 + 1

@@ -9,8 +9,8 @@ ends in a phantom cell and the middle one crosses the camera boundary):
   ``tests/test_slab_counts.py`` (pinhole, spherical: the segmented
   parents);
 - ``build_stream_intersections(st_lo, n_st_local)`` against JAX's: the
-  whole layout equal, under the default expansion and the seg_broadcast
-  kernel path's plain version;
+  whole layout equal, with JAX's builder on its default expansion and on
+  its seg_broadcast kernel path;
 - ``composite_stream`` with ``tile_offset``: forward within 1e-5 rel and
   the gradients within 5e-4 of each one's max of JAX's (its kernels in
   interpret mode), n_chunks equal;
@@ -152,7 +152,8 @@ def test_slab_enumeration_matches_bruteforce(spherical):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_slab_layout_matches_jax(case, path, monkeypatch):
     """Every slab's layout equals JAX's field for field, and the slabs'
-    intersections add up to the whole build's."""
+    intersections add up to the whole build's. ``path`` sets the JAX
+    builder's own ``SPLAT_SEG_BROADCAST``; the port has one expansion."""
     monkeypatch.setenv("SPLAT_SEG_BROADCAST", path)
     kw, model = CASES[case]
     pj, pt, w, h = _jax_projection(kw, model)
@@ -365,8 +366,7 @@ def test_seg_broadcast_slab_key_matches_jax():
     assert ok.sum() > 0 and (~ok & live).sum() > 0  # slots in and out of the slab
     # the default path's decode of the same parents gives the live slots alike
     key_d, g_d = tsb.expand_slots(t(px), t(py), t(span), t(ka), offs_t,
-                                  torch.as_tensor(depth), t(counts), exp_cap, grid,
-                                  force_path="xla")
+                                  torch.as_tensor(depth), t(counts), exp_cap, grid)
     np.testing.assert_array_equal(key_d.numpy()[live], key[live])
     np.testing.assert_array_equal(g_d.numpy()[live], g[live])
 
@@ -392,7 +392,7 @@ def _port_slab_inputs(case, device, st_lo_slab=1):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["pinhole", "spherical"])
-def test_cuda_offset_kernels_match_plain(case, monkeypatch):
+def test_cuda_offset_kernels_match_plain(case):
     """At a nonzero slab offset: stream_fwd, keyed_perm and seg_reduce give
     their plain versions' bits, stream_bwd its plain version's key column
     and its gradient columns within 1e-5 of each column's max (at least
@@ -403,6 +403,7 @@ def test_cuda_offset_kernels_match_plain(case, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from splat_one_tpu_torch.ops import seg_reduce as tsg
+    from test_torch_seg_broadcast import _assert_windowed_layout
 
     proj, cfg, isect, packed, st_lo = _port_slab_inputs(case, "cuda")
     assert st_lo > 0
@@ -423,18 +424,13 @@ def test_cuda_offset_kernels_match_plain(case, monkeypatch):
     assert torch.equal(bounds, bounds_p) and torch.equal(perm[:perm_p.shape[0]], perm_p)
     assert torch.equal(tsg.segment_reduce_rows(pg, perm, bounds, tsi.GCOL_ABSDX),
                        tsg.segment_reduce_plain(pg, perm_p, bounds_p, tsi.GCOL_ABSDX))
-    # the slab build through the seg_broadcast kernel: the plain path's layout
-    monkeypatch.setenv("SPLAT_SEG_BROADCAST", "kernel")
+    # the slab's keys through the seg_broadcast kernel, sorted: the build's layout
     n0 = cuda_build.launch_counts["seg_broadcast"]
     C, N = proj.depths.shape
-    _, cs_local = _slab(C, cfg.width, cfg.height)
-    caps = tsi.StreamCaps.choose(N, C, cs_local, avg_supertiles_per_gaussian=8.0)
-    ik = tsi.build_stream_intersections(proj, cfg.width, cfg.height, 16, caps,
-                                        camera_model=CASES[case][1], st_lo=st_lo,
-                                        n_st_local=cs_local)
+    *prob, grid = tsi.slot_parents(proj, cfg.width, cfg.height, 16, tsi.SS,
+                                   CASES[case][1], st_lo, cfg.cs_local)
+    _assert_windowed_layout(prob, grid, cfg.exp_cap, tsb.SLAB, cfg.chunk, C * N, isect)
     assert cuda_build.launch_counts["seg_broadcast"] == n0 + 1
-    for f in isect._fields:
-        assert torch.equal(getattr(ik, f).cpu(), getattr(isect, f).cpu()), f
     # the tiled kernels at a tile offset
     it = tis.build_intersections(proj, cfg.width, cfg.height, 16,
                                  tis.IsectCaps.choose(N, C, N_TILES),

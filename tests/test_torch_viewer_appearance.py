@@ -16,7 +16,7 @@ features, SH basis of the view direction))``:
   by ``make_render_fn``, gives ``Trainer.render_view``'s frame, for the
   Trainer's own head (two linear layers) and for gsplat's (three);
 - under a profiler a request records ``viewer.appearance`` inside
-  ``viewer.request``, its ``app_rows`` the rows the head evaluated, and
+  ``viewer.request``, before ``render``, and
   ``benchmark.appearance_spans`` charges that span's device time and idle
   to ``appearance`` and sums to ``benchmark.spans.attribute``'s totals;
 - the harness finds ``garden_app.view``'s files and readers, and the
@@ -161,7 +161,7 @@ def test_request_records_the_appearance_span(model):
     by_id = {r.id: r for r in recs}
     (app,) = [r for r in recs if r.name == "viewer.appearance"]
     assert by_id[app.parent].name == "viewer.request"
-    assert dict(app.counts) == {"app_rows": int(cfg["capacity"])}
+    assert not app.counts
     render = next(r for r in recs if r.name == "render")
     assert app.end_ns <= render.start_ns
 
@@ -176,7 +176,7 @@ def _rec(name, i, parent, start, end, counts=()):
 # one request, us on the trace's axis: the head's span between the inputs
 # and the render, with two launches and an idle gap inside
 SPANS = [_rec("viewer.request", 1, 0, 10, 90), _rec("viewer.inputs", 2, 1, 11, 14),
-         _rec("viewer.appearance", 3, 1, 14, 30, (("app_rows", 4096),)),
+         _rec("viewer.appearance", 3, 1, 14, 30),
          _rec("render", 4, 1, 30, 82), _rec("render.project", 5, 4, 32, 40),
          _rec("render.build", 6, 4, 40, 60), _rec("render.composite", 7, 4, 60, 80)]
 CALLS = [("cudaMemcpyAsync", 12), ("cudaLaunchKernel", 15), ("cudaLaunchKernel", 22),
