@@ -9,8 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
   2. build: compile every kernel in splat_one_tpu_torch/csrc (nvcc,
      sm_90a, one process per source, all at once), timed, with ptxas
      register, shared-memory and spill figures per kernel; the forward
-     and backward compositing kernels, the projection kernel and the
-     pack kernel must not spill; the backward
+     and backward compositing kernels, the projection kernel, the pack
+     kernel and the appearance kernel must not spill; the backward
      kernels' resident blocks per SM (from those figures and their
      launches' threads and shared memory);
   3. kernels vs plain versions on the card: small pinhole, spherical,
@@ -55,13 +55,20 @@ Phases (any failure exits non-zero and prints no result line):
      (features, colour logits, gsplat's three-layer head): the head's
      colours ([1, 2^23, 3], no SH) through the kernel against the plain
      version, as above, and one viewer request through the head
-     launching project_fwd and stream_fwd once each;
+     launching appearance_fwd, project_fwd and stream_fwd once each;
      (4d) the pack kernel (csrc/stream_pack.cu) against the plain pack
      (pack_stream(build_field_columns(...))) on the projections of the
      same garden and room models: the whole [packed_rows, 16] table bit
      for bit, the kernel's time (CUDA events, 20 launches) beside its
      byte bound and the plain version's time; a viewer request launches
      it once;
+     (4e) the appearance head's kernel (csrc/appearance_fwd.cu) against
+     the plain head (appearance_rgb) on the same garden model as an
+     appearance model (the benchmark's widths, three linear layers,
+     pinhole pose): the colours of all 2^23 rows within APP_COLOR_ATOL,
+     registers and spill, the kernel's time (CUDA events, 20 launches)
+     beside its bound by operations and the plain head's time; a viewer
+     request launches it once;
   5. training at full width: (a) bench.py's fwd+bwd step on the same
      scene (loss sum(render) + sum(alpha), gradients into all five
      inputs): step time, Mpix/s, per-layer times, device trace, peak
@@ -274,7 +281,8 @@ Phases (any failure exits non-zero and prints no result line):
      nonzero slab offset in phase 7 (pinhole, slab 1 of 4; device time for
      keyed_perm, seg_reduce and seg_broadcast). The projection's and the
      pack's rows (phases 4c, 4d) carry their times at garden's and room's
-     sizes instead.
+     sizes instead; the appearance kernel's row (phase 4e) its time at
+     garden's size, its registers and spill.
 """
 
 import contextlib
@@ -313,7 +321,7 @@ TILED_STEPS = 4  # phase 5c
 WD_SHOTS, WD_STEPS = 24, 40  # phase 5e: the workdir's shots, train_splats' steps
 REL_RENDER, REL_GRAD = 1e-5, 5e-4  # stream vs tiled (tests/test_stream_raster.py)
 NO_SPILL = ("stream_fwd", "stream_bwd", "tile_fwd", "tile_bwd",  # held to 0 B of spill
-            "project_fwd", "stream_pack")
+            "project_fwd", "stream_pack", "appearance_fwd")
 
 
 _T0 = time.perf_counter()
@@ -1268,9 +1276,10 @@ def projection_phase(dev, card):
     cuda_build.launch_counts.clear()
     rd(c2w, K, model)
     torch.cuda.synchronize()
-    counts = {k: cuda_build.launch_counts.get(k, 0) for k in ("project_fwd", "stream_fwd")}
+    counts = {k: cuda_build.launch_counts.get(k, 0)
+              for k in ("appearance_fwd", "project_fwd", "stream_fwd")}
     log(f"  {name} appearance: one viewer request launched {counts}")
-    require(counts == {"project_fwd": 1, "stream_fwd": 1},
+    require(counts == {"appearance_fwd": 1, "project_fwd": 1, "stream_fwd": 1},
             f"{name} appearance: the viewer request launched {counts}, not one of each")
     del rd
     torch.cuda.empty_cache()
@@ -1347,6 +1356,77 @@ def pack_phase(dev, card):
         torch.cuda.empty_cache()
     row["bound_by"] = "bytes"
     return row
+
+
+# ------------------------------------------------ phase 4e: the appearance head
+APP_COLOR_ATOL = 2e-6  # the kernel's colours against the plain head's
+# The operations a row of gsplat's head at SH 3 needs once the embedding's
+# product with w0's first 16 rows (2 x 16 x 64, the same for every row of a
+# request) is folded into b0 once a request, as the kernel does:
+# benchmark/models/gaussians_app.py's APP_OPS_PER_ROW (16,960) less 2,048.
+APP_FN_OPS_PER_ROW = 16_960 - 2 * 16 * 64
+
+
+def appearance_phase(dev, card):
+    """Phase 4e: the appearance head's kernel (``appearance_fwd``) against
+    the plain head (``appearance_rgb``) on garden's rows as an appearance
+    model (``PROJ_SIZES[0]``, ``appearance_model``: the benchmark's widths,
+    three linear layers) at the pinhole pose, its colours within
+    APP_COLOR_ATOL; its time (CUDA events, 20 launches) beside its bound by
+    operations and the plain head's time; registers and spill; one viewer
+    request's launches. Returns the kernel's row of the kernels line."""
+    import torch
+
+    from splat_one_tpu_torch.app.viewer import Renderer
+    from splat_one_tpu_torch.train.appearance import (appearance_rgb,
+                                                      appearance_rgb_from_centres)
+    from splat_one_tpu_torch.utils import cuda_build
+
+    log(f"phase 4e: the appearance head kernel vs appearance_rgb | {card}")
+    ptx = ptxas_entries(cuda_build.build_log.get("appearance_fwd", {}).get("ptxas", ""))
+    require(len(ptx) == 1, f"appearance_fwd: ptxas entries {ptx}")
+    _, regs, stores, loads, _ = ptx[0]
+    name, model, W, H, focal, cap, n_live, n_pruned, extent, eye = PROJ_SIZES[0]
+    params, alive = viewer_model(dev, cap, n_live, n_pruned, extent)
+    params, app = appearance_model(dev, params)
+    rd = Renderer(params, alive, W, H, sh_degree=3, camera_model=model, device=dev,
+                  app_params=app)
+    del params, alive, app
+    c2w = yaw_pose(0.0, *eye)
+    K = np.float32([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]])
+    centres = torch.as_tensor(c2w, device=dev)[None, :3, 3]
+    head = (rd.app_params, rd.features, rd.color_logits, rd.image_ids)
+    with torch.no_grad():
+        got = appearance_rgb_from_centres(*head, rd.means, centres, 3)
+        want = appearance_rgb(*head, rd.means[None] - centres[:, None], 3)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        spread = float(want.std())
+        del got, want
+        ms = cuda_ms(lambda: appearance_rgb_from_centres(*head, rd.means, centres, 3), 20)
+        plain_ms = cuda_ms(lambda: appearance_rgb(*head, rd.means[None] - centres[:, None], 3),
+                           3)
+    bound_ms = cap * APP_FN_OPS_PER_ROW / F32_OPS_PER_S * 1e3
+    log(f"  {name} appearance head over {cap} rows (colour std {spread:.3f}): max abs err "
+        f"{err:.3e} (atol {APP_COLOR_ATOL}); {regs} registers, {stores} B spill stores, "
+        f"{loads} B spill loads; kernel {ms:.4f} ms (CUDA events, 20 launches), bound "
+        f"{bound_ms:.4f} ms by operations ({cap} x {APP_FN_OPS_PER_ROW} at 67 TFLOP/s: "
+        f"{100 * bound_ms / ms:.1f} %); plain head {plain_ms:.3f} ms | {card}")
+    require(err <= APP_COLOR_ATOL, f"{name} appearance head: colours differ by {err:.3e}")
+    require(spread > 0.05, f"{name} appearance head: the colours hardly vary ({spread})")
+    cuda_build.launch_counts.clear()
+    rd(c2w, K, model)
+    torch.cuda.synchronize()
+    n_req = cuda_build.launch_counts["appearance_fwd"]
+    log(f"  {name}: one viewer request launched appearance_fwd {n_req} time(s)")
+    require(n_req == 1, f"{name}: the viewer request did not launch appearance_fwd once")
+    del rd, head, centres
+    torch.cuda.empty_cache()
+    return {"name": "appearance_fwd", "route": "cuda",
+            "source": "splat_one_tpu_torch/csrc/appearance_fwd.cu", "replaces": None,
+            "library_ms": None, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations", "max_abs_err": err, "registers": regs,
+            "spill_bytes": stores + loads, "launches": n_req, "main_path": True}
 
 
 def serve_params(sc):
@@ -5477,6 +5557,8 @@ def main():
     torch.cuda.empty_cache()
     pack_row = pack_phase(dev, card)
     torch.cuda.empty_cache()
+    app_row = appearance_phase(dev, card)
+    torch.cuda.empty_cache()
     tile_fwd_row = tiled_render_phase(dev, card, sc, max_err)
     torch.cuda.empty_cache()
 
@@ -5514,7 +5596,7 @@ def main():
         row["slab_launches"] = slab_counts.get(row["name"], 0)
         require(row["slab_launches"] > 0, f"{row['name']} was not launched in phase 7")
         row["offset_ms"] = offset_ms[row["name"]]
-    kernels += [proj_row, pack_row]
+    kernels += [proj_row, pack_row, app_row]
 
     # phase 6: the kernels line, the card line, the result line
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -222,13 +222,18 @@ class Renderer:
     - ``features`` / ``colors`` with ``app_params`` (a Trainer's
       ``app_opt``, gsplat's ``--app_opt``): per request, gsplat's colour
       ``sigmoid(colors + head(embedding, features, SH basis of the
-      direction from the camera centre))``
-      (``train.appearance.appearance_rgb``) over every row, with the
+      direction from the camera centre))`` over every row
+      (``train.appearance.appearance_rgb_from_centres``), with the
       embedding of training image 0 (as ``Trainer.render_view``) and the
-      SH basis of degree ``sh_degree``
-      (the Trainer's ``Config.sh_degree``); a head of any depth. Without
-      ``app_params`` such a model is refused: ``sigmoid(colors)`` alone
-      is not its colour;
+      SH basis of degree ``sh_degree`` (the Trainer's
+      ``Config.sh_degree``). On CUDA one kernel evaluates it
+      (``csrc/appearance_fwd.cu``): heads of hidden width 64 with two or
+      three linear layers (the Trainer's default, gsplat's
+      ``mlp_depth=2``), features of a width divisible by 4 and inputs of
+      at most 128; any other head raises ``ValueError`` there. On the CPU
+      the plain head serves a head of any width and depth. Without
+      ``app_params``, or with no embedding row for image 0, such a model
+      is refused: ``sigmoid(colors)`` alone is not its colour;
     - ``colors`` alone: ``sigmoid(colors)``."""
 
     def __init__(self, params, alive, width, height, sh_degree=3,
@@ -252,6 +257,9 @@ class Renderer:
                 raise ValueError("a model with features / colors is coloured by its "
                                  "appearance head: pass app_params "
                                  "(load_checkpoint_app_params reads a checkpoint's)")
+            if app_params["embeds"].dim() != 2 or app_params["embeds"].shape[0] < 1:
+                raise ValueError("the head serves image 0's embedding: embeds must be "
+                                 f"[n_images >= 1, E], got {tuple(app_params['embeds'].shape)}")
             self.app_params = {k: v.to(self.device) for k, v in app_params.items()}
             self.features = p["features"]
             self.color_logits = p["colors"]
@@ -274,9 +282,9 @@ class Renderer:
             colors = self.colors
         else:
             with span("viewer.appearance"):
-                dirs = (self.means - c2w[:3, 3])[None]
-                colors = APP.appearance_rgb(self.app_params, self.features, self.color_logits,
-                                            self.image_ids, dirs, self.app_degree)
+                colors = APP.appearance_rgb_from_centres(
+                    self.app_params, self.features, self.color_logits, self.image_ids,
+                    self.means, c2w[None, :3, 3], self.app_degree)
         out, alpha, info = rasterization(
             self.means, self.quats, self.scales, self.opacities, colors,
             viewmats, K[None], self.width, self.height,

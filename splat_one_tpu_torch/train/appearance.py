@@ -17,6 +17,17 @@ like the JAX package's, counts linear layers (``[in] + [width] *
 (mlp_depth - 1) + [3]``): at ``mlp_depth=2`` it builds two, one hidden
 layer. ``appearance_color`` evaluates whatever ``w0, w1, ...`` it is
 given, so it evaluates both heads.
+
+Serving. ``appearance_rgb_from_centres`` takes the means and camera
+centres in place of the directions: ``app.viewer.Renderer``'s path. On
+CUDA tensors it launches one kernel (``ops.appearance.appearance_fwd``,
+``csrc/appearance_fwd.cu``), which serves one camera, heads of hidden
+width 64 with two or three linear layers (both counts above), features
+of a width divisible by 4 and inputs ``E + F + (d + 1)**2`` of at most
+128 for SH degree d from 0 to 4, with no autograd; anything else raises
+``ValueError`` there. CPU tensors run the plain composition over every
+head. ``appearance_rgb``, ``appearance_color`` and the Trainer's path are
+the plain ones.
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ from typing import Dict
 import torch
 
 from splat_one_tpu_torch.core.sh import eval_sh_bases, num_sh_bases
+from splat_one_tpu_torch.ops import appearance as app_ops
 
 Params = Dict[str, torch.Tensor]
 
@@ -77,3 +89,21 @@ def appearance_rgb(params: Params, features: torch.Tensor,  # [N, F]
     """The rendered colour ``[C, N, 3]``: ``sigmoid(colors + head)``."""
     return torch.sigmoid(appearance_color(params, features, image_ids, dirs, sh_degree)
                          + colors)
+
+
+def appearance_rgb_from_centres(params: Params, features: torch.Tensor,  # [N, F]
+                                colors: torch.Tensor,  # [N, 3] logits
+                                image_ids: torch.Tensor,  # [C] int
+                                means: torch.Tensor,  # [N, 3]
+                                centres: torch.Tensor,  # [C, 3]
+                                sh_degree: int = 3) -> torch.Tensor:
+    """The rendered colour ``[C, N, 3]`` seen from the camera centres:
+    ``appearance_rgb`` on the directions ``means[None] - centres[:, None]``.
+    CPU tensors run that plain composition; CUDA tensors launch the
+    kernel (``appearance_fwd``), whose checks raise on what it does not
+    serve."""
+    if means.device.type != "cuda":
+        return appearance_rgb(params, features, colors, image_ids,
+                              means[None] - centres[:, None], sh_degree)
+    return app_ops.appearance_fwd(params, features, colors, image_ids, means, centres,
+                                  sh_degree)

@@ -66,6 +66,10 @@ SIGNATURES = {
     # sorted_g, means2d, conics, opacities, colors, depths, radii, packed,
     # exp_cap, m0, rows, stream
     "stream_pack": [_P] * 8 + [_I] * 3 + [_P],
+    # means, features, colour logits, centre, centre stride, embeds,
+    # image id, w0, b0, w1 (or NULL), b1 (or NULL), w_last, b_last, out, n,
+    # e, f, nb, stream
+    "appearance_fwd": [_P] * 4 + [_I] + [_P] * 9 + [_I] * 4 + [_P],
 }
 
 launch_counts: collections.Counter = collections.Counter()
