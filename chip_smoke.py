@@ -69,6 +69,16 @@ Phases (any failure exits non-zero and prints no result line):
      registers and spill, the kernel's time (CUDA events, 20 launches)
      beside its bound by operations and the plain head's time; a viewer
      request launches it once;
+     (4f) the 2D Gaussian Splatting kernels (csrc/surfel_project.cu,
+     surfel_pack.cu, surfel_fwd.cu) against their plain versions
+     (ops/surfels.py) on the same garden model drawn as surfels at the
+     pinhole pose: the projection's fields bit for bit but the colours
+     (within PROJ_COLOR_ATOL), the pack's whole table and the forward's
+     output bit for bit; each kernel's registers and spill, its time (CUDA
+     events, 20 launches) beside its bound (the surfel model's counts,
+     benchmark/models/surfels.py; the forward's needed pairs counted by
+     the benchmark's surfel reference) and its plain version's time; a
+     2DGS viewer request launches each once and no 3DGS kernel;
   5. training at full width: (a) bench.py's fwd+bwd step on the same
      scene (loss sum(render) + sum(alpha), gradients into all five
      inputs): step time, Mpix/s, per-layer times, device trace, peak
@@ -321,7 +331,8 @@ TILED_STEPS = 4  # phase 5c
 WD_SHOTS, WD_STEPS = 24, 40  # phase 5e: the workdir's shots, train_splats' steps
 REL_RENDER, REL_GRAD = 1e-5, 5e-4  # stream vs tiled (tests/test_stream_raster.py)
 NO_SPILL = ("stream_fwd", "stream_bwd", "tile_fwd", "tile_bwd",  # held to 0 B of spill
-            "project_fwd", "stream_pack", "appearance_fwd")
+            "project_fwd", "stream_pack", "appearance_fwd", "surfel_project", "surfel_pack",
+            "surfel_fwd")
 
 
 _T0 = time.perf_counter()
@@ -1427,6 +1438,139 @@ def appearance_phase(dev, card):
             "library_ms": None, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations", "max_abs_err": err, "registers": regs,
             "spill_bytes": stores + loads, "launches": n_req, "main_path": True}
+
+
+# ------------------------------------------------ phase 4f: the 2DGS kernels
+def surfel_phase(dev, card):
+    """Phase 4f: the surfel kernels (``surfel_project``, ``surfel_pack``,
+    ``surfel_fwd``) against their plain versions on garden's rows
+    (``PROJ_SIZES[0]``) drawn as surfels at the pinhole pose; each
+    kernel's time (CUDA events, 20 launches) beside its bound and its
+    plain version's time; one 2DGS viewer request's launches. Returns the
+    three kernels' rows of the kernels line."""
+    import torch
+
+    from benchmark.models import surfels as M
+    from benchmark.reference import surfel as RS
+    from splat_one_tpu_torch.app.viewer import Renderer
+    from splat_one_tpu_torch.core.transforms import invert_se3
+    from splat_one_tpu_torch.ops import stream_isect as si
+    from splat_one_tpu_torch.ops import stream_raster as sr
+    from splat_one_tpu_torch.ops import surfels as SF
+    from splat_one_tpu_torch.utils import cuda_build
+
+    log(f"phase 4f: the 2DGS kernels vs their plain versions | {card}")
+    ptx = {}
+    for kname in ("surfel_project", "surfel_pack", "surfel_fwd"):
+        entries = ptxas_entries(cuda_build.build_log.get(kname, {}).get("ptxas", ""))
+        require(entries, f"{kname}: no ptxas entries")
+        ptx[kname] = (max(e[1] for e in entries), sum(e[2] + e[3] for e in entries))
+    name, model, W, H, focal, cap, n_live, n_pruned, extent, eye = PROJ_SIZES[0]
+    params, alive = viewer_model(dev, cap, n_live, n_pruned, extent)
+    rd = Renderer(params, alive, W, H, sh_degree=3, camera_model=model, device=dev,
+                  primitive="2dgs")
+    del params, alive
+    c2w = yaw_pose(0.0, *eye)
+    K = np.float32([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]])
+    args = (rd.means, rd.quats, rd.scales, rd.opacities,
+            invert_se3(torch.as_tensor(c2w, device=dev)[None]),
+            torch.as_tensor(K, device=dev)[None], W, H)
+    kw = dict(sh_coeffs=rd.colors, sh_degree=3)
+    rows = []
+    with torch.no_grad():
+        proj = SF.project_surfels(*args, **kw)
+        want = SF.project_surfels_plain(*args, **kw)
+        torch.cuda.synchronize()
+        ne = {f: int((getattr(proj, f).contiguous().view(torch.int8)
+                      != getattr(want, f).contiguous().view(torch.int8)).sum())
+              for f in ("means2d", "transforms", "depths", "boxes", "valid")}
+        ce = float((proj.colors - want.colors).abs().max())
+        n_valid = int(want.valid.sum())
+        del want
+        require(not any(ne.values()), f"{name} surfels: the projection's fields differ "
+                f"from the plain version's: {ne}")
+        require(ce <= PROJ_COLOR_ATOL, f"{name} surfels: colours differ by {ce:.3e}")
+        ms = cuda_ms(lambda: SF.project_surfels(*args, **kw), 20)
+        plain_ms = cuda_ms(lambda: SF.project_surfels_plain(*args, **kw), 3)
+        mb = (cap * M.BYTES_PER_GAUSSIAN + n_valid * 4 * M.FIELDS) / 1e6
+        bound_ms = max(mb * 1e6 / HBM_BYTES_PER_S, cap * M.OPS_PER_GAUSSIAN / F32_OPS_PER_S) * 1e3
+        log(f"  surfel_project: {cap} rows ({n_valid} valid) {W}x{H}: bit for bit but the "
+            f"colours ({ce:.2e}, atol {PROJ_COLOR_ATOL}); {ptx['surfel_project'][0]} registers,"
+            f" {ptx['surfel_project'][1]} B spill; kernel {ms:.4f} ms (CUDA events, 20 "
+            f"launches), bound {bound_ms:.4f} ms by bytes ({mb:.1f} MB: "
+            f"{100 * bound_ms / ms:.1f} %); plain version {plain_ms:.3f} ms | {card}")
+        rows.append({"name": "surfel_project", "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": "bytes", "max_abs_err": ce})
+
+        _, _, sw, sh = si.supertile_grid(W, H, 16)
+        caps = si.StreamCaps.choose(cap, 1, sw * sh)
+        isect = si.build_stream_intersections(proj, W, H, 16, caps)
+        fields = (proj.means2d, proj.transforms, proj.opacities, proj.colors, proj.depths)
+        packed = SF.pack_surfel_fields(proj, isect, caps)
+        plain = si.pack_stream(SF.surfel_field_columns(*fields), isect, caps)
+        torch.cuda.synchronize()
+        ne = (packed.view(torch.int32) != plain.view(torch.int32)).sum(0).tolist()
+        require(not any(ne), f"{name} surfels: the pack's table differs, by column {ne}")
+        kept = int(isect.n_slots)
+        del plain
+        ms = cuda_ms(lambda: SF.pack_surfel_fields(proj, isect, caps), 20)
+        plain_ms = cuda_ms(lambda: si.pack_stream(SF.surfel_field_columns(*fields), isect,
+                                                  caps), 20)
+        # every row written (64 B) with its slot's index read (4 B), each kept
+        # slot's 64 B of fields read once
+        mb = (caps.packed_rows * 64 + caps.exp_cap * 4 + kept * 64) / 1e6
+        bound_ms = mb * 1e6 / HBM_BYTES_PER_S * 1e3
+        log(f"  surfel_pack: exp_cap {caps.exp_cap}, {kept} kept slots: bit for bit; "
+            f"{ptx['surfel_pack'][0]} registers, {ptx['surfel_pack'][1]} B spill; kernel "
+            f"{ms:.4f} ms (CUDA events, 20 launches), bound {bound_ms:.4f} ms by bytes "
+            f"({mb:.1f} MB: {100 * bound_ms / ms:.1f} %); plain version {plain_ms:.3f} ms | "
+            f"{card}")
+        rows.append({"name": "surfel_pack", "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": "bytes", "max_abs_err": 0.0})
+
+        cfg = sr.StreamCfg.from_caps(caps, W, H, 16, 1, cap)
+        out = SF.surfel_fwd(cfg, isect.st_starts, packed)
+        t0 = time.perf_counter()
+        ref = SF.surfel_fwd_plain(cfg, isect.st_starts, packed)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        unequal = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+        require(unequal == 0, f"{name} surfels: the forward differs from its plain version "
+                f"in {unequal} elements (max {float((out - ref).abs().max()):.3e})")
+        del ref
+        ms = cuda_ms(lambda: SF.surfel_fwd(cfg, isect.st_starts, packed), 20)
+        act = {"means": rd.means, "quats": rd.quats, "scales": rd.scales,
+               "opacities": rd.opacities, "sh": rd.colors}
+        r = RS.render(act, c2w, K, W, H, RS.camera("pinhole"), M.color)
+        ops_ms = r.needed * M.OPS_PER_PAIR / F32_OPS_PER_S * 1e3
+        bytes_ms = 4 * (r.visible * M.FIELDS + W * H * 5) / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        frame_err = float((out[:, :, 3].max() - 1).abs())
+        log(f"  surfel_fwd: {r.needed / 1e6:.1f} M needed pairs ({r.needed / (W * H):.1f} a "
+            f"pixel), {r.visible} surfels on screen: bit for bit; {ptx['surfel_fwd'][0]} "
+            f"registers, {ptx['surfel_fwd'][1]} B spill; kernel {ms:.4f} ms (CUDA events, 20 "
+            f"launches), bound {bound_ms:.4f} ms by operations ({M.OPS_PER_PAIR} a pair: "
+            f"{100 * bound_ms / ms:.1f} %); plain version {plain_ms:.0f} ms | {card}")
+        require(frame_err < 1e-3, f"{name} surfels: the frame is not covered ({frame_err})")
+        rows.append({"name": "surfel_fwd", "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": "operations", "max_abs_err": 0.0})
+        del r, act, out, packed, isect, proj
+    cuda_build.launch_counts.clear()
+    rd(c2w, K, model)
+    torch.cuda.synchronize()
+    counts = {k: cuda_build.launch_counts.get(k, 0)
+              for k in ("surfel_project", "surfel_pack", "surfel_fwd", "project_fwd",
+                        "stream_pack", "stream_fwd")}
+    log(f"  {name} 2DGS: one viewer request launched {counts}")
+    require(counts == {"surfel_project": 1, "surfel_pack": 1, "surfel_fwd": 1,
+                       "project_fwd": 0, "stream_pack": 0, "stream_fwd": 0},
+            f"{name} 2DGS: the viewer request launched {counts}")
+    del rd
+    torch.cuda.empty_cache()
+    return [dict(row, route="cuda", source=f"splat_one_tpu_torch/csrc/{row['name']}.cu",
+                 replaces=None, library_ms=None, registers=ptx[row["name"]][0],
+                 spill_bytes=ptx[row["name"]][1], launches=1, main_path=True)
+            for row in rows]
 
 
 def serve_params(sc):
@@ -5559,6 +5703,8 @@ def main():
     torch.cuda.empty_cache()
     app_row = appearance_phase(dev, card)
     torch.cuda.empty_cache()
+    surfel_rows = surfel_phase(dev, card)
+    torch.cuda.empty_cache()
     tile_fwd_row = tiled_render_phase(dev, card, sc, max_err)
     torch.cuda.empty_cache()
 
@@ -5596,7 +5742,7 @@ def main():
         row["slab_launches"] = slab_counts.get(row["name"], 0)
         require(row["slab_launches"] > 0, f"{row['name']} was not launched in phase 7")
         row["offset_ms"] = offset_ms[row["name"]]
-    kernels += [proj_row, pack_row, app_row]
+    kernels += [proj_row, pack_row, app_row] + surfel_rows
 
     # phase 6: the kernels line, the card line, the result line
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,7 +8,7 @@
     python -m splat_one_tpu_torch.app.cli run-all <workdir>
     python -m splat_one_tpu_torch.app.cli train <workdir> [--max-steps N] ...
     python -m splat_one_tpu_torch.app.cli train <workdir> --ckpt <npz> [--compression png]
-    python -m splat_one_tpu_torch.app.cli viewer <workdir> [--port 8080]
+    python -m splat_one_tpu_torch.app.cli viewer <workdir> [--port 8080] [--primitive 2dgs]
     python -m splat_one_tpu_torch.app.cli create-masks <workdir> [--clicks J] [--checkpoint N]
     python -m splat_one_tpu_torch.app.cli estimate-depth <workdir> [--equirect] [--camera-aware]
     python -m splat_one_tpu_torch.app.cli mask-ui <workdir> [--port 8081] [--checkpoint N]
@@ -92,6 +92,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--port", type=int, default=8080)
     sp.add_argument("--ckpt", default=None)
     sp.add_argument("--device", default="cuda")
+    sp.add_argument("--primitive", choices=["3dgs", "2dgs"], default="3dgs",
+                    help="2dgs: draw the checkpoint's rows as 2D Gaussian Splatting surfels")
 
     sp = sub.add_parser("mask-ui")
     sp.add_argument("workdir")
@@ -230,7 +232,7 @@ def main(argv=None) -> int:
         from splat_one_tpu_torch.app import viewer
 
         viewer.serve_workdir(args.workdir, port=args.port, ckpt=args.ckpt,
-                             device=args.device)
+                             device=args.device, primitive=args.primitive)
     print(f"[{args.cmd}] done in {time.time() - t0:.1f}s")
     return 0
 

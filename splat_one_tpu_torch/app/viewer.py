@@ -11,9 +11,12 @@ computation of the JAX Trainer's ``_render_view_alt``, RGB+ED through
 ``shN``), models trained with gsplat's appearance head (``Config.app_opt``:
 ``features`` / ``colors`` and the head's parameters, coloured by the
 embedding of one training image, image 0 as ``Trainer.render_view``) and
-models with plain colour logits (``colors`` alone).
+models with plain colour logits (``colors`` alone); with
+``primitive="2dgs"``, 2D Gaussian Splatting models (the same keys, the
+rows drawn as surfels through ``rasterization_2dgs``).
 ``serve_workdir`` serves a workdir's latest checkpoint through a
-``Trainer.render_view`` (``workdir_server`` builds that server).
+``Trainer.render_view`` (``workdir_server`` builds that server), or a 2DGS
+checkpoint through a ``Renderer``.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 
 from splat_one_tpu_torch.core.transforms import invert_se3
 from splat_one_tpu_torch.data.opensfm import Parser, to_scene_data
-from splat_one_tpu_torch.render.rasterization import rasterization
+from splat_one_tpu_torch.render.rasterization import rasterization, rasterization_2dgs
 from splat_one_tpu_torch.train import appearance as APP
 from splat_one_tpu_torch.train.config import Config
 from splat_one_tpu_torch.train.trainer import Trainer
@@ -234,10 +237,20 @@ class Renderer:
       the plain head serves a head of any width and depth. Without
       ``app_params``, or with no embedding row for image 0, such a model
       is refused: ``sigmoid(colors)`` alone is not its colour;
-    - ``colors`` alone: ``sigmoid(colors)``."""
+    - ``colors`` alone: ``sigmoid(colors)``.
+
+    ``primitive="2dgs"`` draws the rows as 2D Gaussian Splatting's surfels
+    (``rasterization_2dgs``: the first two scale columns, the rotation's
+    first two axes; SH models, pinhole cameras; forward only) in place of
+    3D gaussians (``"3dgs"``)."""
 
     def __init__(self, params, alive, width, height, sh_degree=3,
-                 camera_model="pinhole", device="cuda", app_params=None):
+                 camera_model="pinhole", device="cuda", app_params=None, primitive="3dgs"):
+        if primitive not in ("3dgs", "2dgs"):
+            raise ValueError(f"unknown primitive {primitive!r}")
+        if primitive == "2dgs" and "sh0" not in params:
+            raise ValueError("2DGS is served for models with SH colour (sh0 / shN)")
+        self.primitive = primitive
         self.device = resolve_device(device)
         p = {k: v.to(self.device) for k, v in params.items()}
         alive = alive.to(self.device)
@@ -285,7 +298,8 @@ class Renderer:
                 colors = APP.appearance_rgb_from_centres(
                     self.app_params, self.features, self.color_logits, self.image_ids,
                     self.means, c2w[None, :3, 3], self.app_degree)
-        out, alpha, info = rasterization(
+        raster = rasterization_2dgs if self.primitive == "2dgs" else rasterization
+        out, alpha, info = raster(
             self.means, self.quats, self.scales, self.opacities, colors,
             viewmats, K[None], self.width, self.height,
             sh_degree=self.sh_degree,
@@ -302,13 +316,14 @@ class Renderer:
 
 
 def make_render_fn(params, alive, width, height, sh_degree=3,
-                   camera_model="pinhole", device="cuda", app_params=None) -> Renderer:
+                   camera_model="pinhole", device="cuda", app_params=None,
+                   primitive="3dgs") -> Renderer:
     """The render function ``ViewerServer`` serves:
     ``fn(c2w, K, camera_model) -> uint8 [H, W, 3]``, with ``fn.render``
-    for the float rgb, depth and alpha; ``app_params`` as ``Renderer``
-    takes them. Runs on CUDA unless ``device="cpu"``."""
+    for the float rgb, depth and alpha; ``app_params`` and ``primitive``
+    as ``Renderer`` takes them. Runs on CUDA unless ``device="cpu"``."""
     return Renderer(params, alive, width, height, sh_degree, camera_model,
-                    device, app_params)
+                    device, app_params, primitive)
 
 
 def latest_checkpoint(workdir: str):
@@ -323,13 +338,26 @@ def latest_checkpoint(workdir: str):
 
 
 def workdir_server(workdir: str, port: int = 8080, ckpt: str = None,
-                   device="cuda") -> ViewerServer:
+                   device="cuda", primitive="3dgs") -> ViewerServer:
     """A ``ViewerServer`` for the workdir: a Trainer over its first two
     images (for the size and camera model) loads ``ckpt`` or the latest
     checkpoint and renders each request through ``render_view``. The
     server's page and camera are 640x480; the render has the images'
-    size, as in the JAX package. Runs on CUDA unless ``device="cpu"``."""
+    size, as in the JAX package. With ``primitive="2dgs"`` the checkpoint
+    (``ckpt`` or the latest; a 3DGS checkpoint's keys, the rows drawn as
+    surfels) is served by a ``Renderer`` at the page's size, pinhole
+    whatever the page's camera toggle asks. Runs on CUDA unless
+    ``device="cpu"``."""
     dev = resolve_device(device)
+    if primitive == "2dgs":
+        ckpt = ckpt or latest_checkpoint(workdir)
+        if not ckpt:
+            raise ValueError(f"{workdir}: no checkpoint to serve as 2DGS")
+        params, alive = load_checkpoint_params(ckpt, dev)
+        sh_degree = int(round((1 + params["shN"].shape[1]) ** 0.5)) - 1 if "shN" in params \
+            else 3
+        rd = Renderer(params, alive, 640, 480, sh_degree, device=dev, primitive="2dgs")
+        return ViewerServer(lambda c2w, K, model: rd(c2w, K, "pinhole"), port=port)
     scene = to_scene_data(Parser(workdir), max_images=2)
     cfg = Config(result_dir=os.path.join(workdir, "results"),
                  camera_model=scene.camera_model)
@@ -345,6 +373,7 @@ def workdir_server(workdir: str, port: int = 8080, ckpt: str = None,
     return ViewerServer(render_fn, port=port)
 
 
-def serve_workdir(workdir: str, port: int = 8080, ckpt: str = None, device="cuda"):
+def serve_workdir(workdir: str, port: int = 8080, ckpt: str = None, device="cuda",
+                  primitive="3dgs"):
     """Serve the workdir's latest checkpoint (or ``ckpt``) until killed."""
-    workdir_server(workdir, port, ckpt, device).serve_forever()
+    workdir_server(workdir, port, ckpt, device, primitive).serve_forever()

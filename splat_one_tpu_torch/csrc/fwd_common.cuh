@@ -237,16 +237,40 @@ __device__ __forceinline__ void composite(const float4* rows, const unsigned cha
   for (int q = 0; q < PPT; ++q) pix.T[q] = pix.T[q] * tin[q];
 }
 
+// The slots of the 3D gaussians' rows (conic, opacity, colour, depth): a
+// warp leaves out a slot that misses_block proves composites none of its
+// pixels, and composites the rest by the conic's alpha. A kernel that walks
+// other rows gives walk_tile its own with these two members; k is the
+// chunk's index and g the row's within it.
+struct ConicSlots {
+  template <bool WRAP, int PPT>
+  __device__ __forceinline__ bool misses(const float4* rows, int k, int g,
+                                         const Pixels<PPT>& pix, float width,
+                                         float inv_width) const {
+    return misses_block<WRAP>(reinterpret_cast<const float*>(rows + g * ROW4), pix, width,
+                              inv_width);
+  }
+  template <int PPT, int U, bool WRAP>
+  __device__ __forceinline__ void composite(const float4* rows, const unsigned char* list,
+                                            int n, Pixels<PPT>& pix, float width,
+                                            float inv_width) const {
+    fwd::composite<PPT, U, WRAP>(rows, list, n, pix, width, inv_width);
+  }
+};
+
 // Walk the tile's `nchunks` chunks, chunk k being the G rows at
 // src + k * G rows, and return how many it composited: every chunk it
 // reached alive (COUNT_EMPTY) or only those whose mask is not empty.
 // pred(row, slot) picks the slots to walk (slot = k * G + g); the tile
-// stops before a chunk once no pixel is alive(term_thresh).
-template <int PPT, int U, int STAGES, bool WRAP, bool COUNT_EMPTY, class Pred>
+// stops before a chunk once no pixel is alive(term_thresh); `slots` culls
+// and composites the walked rows (ConicSlots: 3D gaussians).
+template <int PPT, int U, int STAGES, bool WRAP, bool COUNT_EMPTY, class Pred,
+          class Slots = ConicSlots>
 __device__ __forceinline__ int walk_tile(Smem<Shape<PPT>::WARPS, U, STAGES>& sm,
                                          const float4* src, int nchunks,
                                          Pixels<PPT>& pix, Pred pred, float width,
-                                         float inv_width, float term_thresh) {
+                                         float inv_width, float term_thresh,
+                                         const Slots& slots = Slots()) {
   static_assert(STAGES >= 2, "a chunk in flight while one is walked");
   constexpr int THREADS = Shape<PPT>::THREADS;
   const int tid = threadIdx.x;
@@ -281,10 +305,9 @@ __device__ __forceinline__ int walk_tile(Smem<Shape<PPT>::WARPS, U, STAGES>& sm,
     for (int i = 0; i < G / 32; ++i) m[i] = sm.mask[k & 1][i];
     if (COUNT_EMPTY || (m[0] | m[1] | m[2] | m[3])) {
       const int n = build_list<U>(m, list, lane, [&](int g) {
-        return !misses_block<WRAP>(reinterpret_cast<const float*>(rows + g * ROW4), pix,
-                                   width, inv_width);
+        return !slots.template misses<WRAP>(rows, k, g, pix, width, inv_width);
       });
-      composite<PPT, U, WRAP>(rows, list, n, pix, width, inv_width);
+      slots.template composite<PPT, U, WRAP>(rows, list, n, pix, width, inv_width);
       nch = k + 1;
     }
   }

@@ -244,20 +244,29 @@ def stream_pack(means2d, conics, opacities, colors, depths, radii, sorted_g,
     return packed
 
 
+def membership_box(proj):
+    """Flat [C*N] ``(u, v, rx, ry)`` of each (camera, gaussian): the centre
+    and half widths of the box it reaches. A surfel projection's own boxes
+    (``ops.surfels``), or about ``means2d`` the opacity-aware ellipse
+    extents of a conic (``conic_ellipse_radii``)."""
+    boxes = getattr(proj, "boxes", None)
+    if boxes is not None:
+        return boxes.reshape(-1, 4).unbind(-1)
+    con = proj.conics.reshape(-1, 3)
+    rx, ry = conic_ellipse_radii(con[:, 0], con[:, 1], con[:, 2], proj.opacities.reshape(-1))
+    return proj.means2d[..., 0].reshape(-1), proj.means2d[..., 1].reshape(-1), rx, ry
+
+
 def parent_spans(proj: Projected, width: int, height: int, tile_size: int,
                  ss: int, camera_model: str = "pinhole"):
     """Per-(camera, gaussian) supertile bbox spans in [C, N] order:
-    ``(sx0, span_x, sy0, span_y)`` (int64, flat [C*N]). Membership is the
-    opacity-aware ellipse extent (``conic_ellipse_radii``)."""
+    ``(sx0, span_x, sy0, span_y)`` (int64, flat [C*N]). Membership is
+    ``membership_box``."""
     C, N = proj.depths.shape
     M0 = C * N
     _, _, sw, sh = supertile_grid(width, height, tile_size, ss)
     sps = tile_size * ss
-    u = proj.means2d[..., 0].reshape(M0)
-    v = proj.means2d[..., 1].reshape(M0)
-    con = proj.conics.reshape(M0, 3)
-    rx, ry = conic_ellipse_radii(
-        con[:, 0], con[:, 1], con[:, 2], proj.opacities.reshape(M0))
+    u, v, rx, ry = membership_box(proj)
     valid = proj.valid.reshape(M0)
     sy0 = torch.clamp(torch.floor((v - ry) / sps), 0, sh).long()
     sy1 = torch.clamp(torch.ceil((v + ry) / sps), 0, sh).long()

@@ -154,11 +154,16 @@ def _chunk_gate(cfg: StreamCfg, chunk, tx, ty, rowmask):
     """Per-(tile, slot) membership [S, NT, G]: the slot belongs to the
     supertile's range (``rowmask`` [S, G]) and its opacity-aware ellipse
     bbox (``COL_EXT_RX/RY``) covers the tile (``tx``/``ty`` [S, NT])."""
+    return box_gate(cfg, chunk[:, None, :, si.COL_X], chunk[:, None, :, si.COL_Y],
+                    chunk[:, None, :, si.COL_EXT_RX], chunk[:, None, :, si.COL_EXT_RY],
+                    tx, ty, rowmask)
+
+
+def box_gate(cfg: StreamCfg, x, y, rx, ry, tx, ty, rowmask):
+    """Per-(tile, slot) membership [S, NT, G] of slots at (x, y) with half
+    extents (rx, ry) ([S, 1, G] each): in the supertile's range
+    (``rowmask`` [S, G]) and covering the tile (``tx``/``ty`` [S, NT])."""
     ts = float(cfg.tile_size)
-    x = chunk[:, None, :, si.COL_X]
-    y = chunk[:, None, :, si.COL_Y]
-    rx = chunk[:, None, :, si.COL_EXT_RX]
-    ry = chunk[:, None, :, si.COL_EXT_RY]
     txf, tyf = tx[..., None], ty[..., None]
     in_y = (tyf >= torch.floor((y - ry) / ts)) & (tyf < torch.ceil((y + ry) / ts))
     if cfg.wrap_x:
@@ -179,6 +184,30 @@ def stream_fwd_plain(cfg: StreamCfg, st_starts: torch.Tensor,
     as ``csrc/stream_fwd.cu``, and the same per-slot arithmetic in the same
     order (a serial loop over the G slots of a chunk), vectorised over
     supertiles, tiles and pixels."""
+    inv_w = _inv_width(cfg)
+
+    def conic_alpha(c, px, py):
+        dx = c[:, si.COL_X] - px
+        if cfg.wrap_x:
+            dx = dx - cfg.width * torch.round(dx * inv_w)
+        dy = c[:, si.COL_Y] - py
+        sigma = (0.5 * (c[:, si.COL_CA] * dx * dx + c[:, si.COL_CC] * dy * dy)
+                 + c[:, si.COL_CB] * dx * dy)
+        alpha_raw = c[:, si.COL_OPAC] * torch.exp(-sigma)
+        return alpha_raw, (sigma < 0.0) | (alpha_raw < ALPHA_MIN)
+
+    return walk_plain(cfg, st_starts, packed, _chunk_gate, conic_alpha, si.COL_R,
+                      tile_offset)
+
+
+def walk_plain(cfg: StreamCfg, st_starts: torch.Tensor, packed: torch.Tensor, gate_fn,
+               alpha_fn, color_col: int, tile_offset: int = 0) -> torch.Tensor:
+    """The forward kernels' stream walk in plain PyTorch: ``gate_fn(cfg,
+    chunk, tx, ty, rowmask)`` the per-(tile, slot) membership [S, NT, G],
+    ``alpha_fn(c, px, py)`` one slot's unclamped alpha at the pixel
+    centres and where it is killed (``c`` its row per supertile, [S, NF,
+    1, 1]); the columns ``color_col`` to ``color_col + 3`` of a row are
+    its r, g, b and depth."""
     G, NT, P = cfg.chunk, cfg.nt, cfg.npix
     CS = cfg.cs
     dev = packed.device
@@ -191,7 +220,6 @@ def stream_fwd_plain(cfg: StreamCfg, st_starts: torch.Tensor,
     nch = torch.zeros((CS, NT), dtype=torch.int64, device=dev)
     px_all, py_all, tx_all, ty_all = _tile_geometry(
         cfg, torch.arange(CS, device=dev) + tile_offset)
-    inv_w = _inv_width(cfg)
     slots = torch.arange(G, device=dev)
     kmax = int(nchunks.max()) if CS else 0
     for k in range(kmax):
@@ -203,26 +231,18 @@ def stream_fwd_plain(cfg: StreamCfg, st_starts: torch.Tensor,
             rows = base0[sel, None] + k * G + slots
             chunk = packed[rows]  # [S, G, NF]
             rowmask = (rows >= s0[sel, None]) & (rows < s1[sel, None])
-            gate = _chunk_gate(cfg, chunk, tx_all[sel], ty_all[sel], rowmask)
+            gate = gate_fn(cfg, chunk, tx_all[sel], ty_all[sel], rowmask)
             proc = alive[sel] & gate.any(-1)  # [S, NT]
             Ts, accs = T[sel], acc[sel].clone()
             px, py = px_all[sel], py_all[sel]
             tin = torch.ones_like(Ts)
             for g in range(G):
-                c = chunk[:, g, :, None, None]  # [S, NF, 1, 1]
-                dx = c[:, si.COL_X] - px
-                if cfg.wrap_x:
-                    dx = dx - cfg.width * torch.round(dx * inv_w)
-                dy = c[:, si.COL_Y] - py
-                sigma = (0.5 * (c[:, si.COL_CA] * dx * dx + c[:, si.COL_CC] * dy * dy)
-                         + c[:, si.COL_CB] * dx * dy)
-                alpha_raw = c[:, si.COL_OPAC] * torch.exp(-sigma)
-                killed = ((sigma < 0.0) | (alpha_raw < ALPHA_MIN)
-                          | ~gate[:, :, g, None])
+                alpha_raw, dead = alpha_fn(chunk[:, g, :, None, None], px, py)
+                killed = dead | ~gate[:, :, g, None]
                 alpha = torch.where(killed, torch.zeros_like(alpha_raw),
                                     torch.clamp(alpha_raw, max=ALPHA_MAX))
                 w = alpha * tin * Ts
-                accs = accs + w[:, :, None, :] * chunk[:, g, None, si.COL_R:si.COL_R + 4, None]
+                accs = accs + w[:, :, None, :] * chunk[:, g, None, color_col:color_col + 4, None]
                 tin = tin * (1.0 - alpha)
             T[sel] = torch.where(proc[..., None], Ts * tin, Ts)
             acc[sel] = torch.where(proc[..., None, None], accs, acc[sel])

@@ -24,6 +24,10 @@ Each stage runs inside a span of ``utils.profiling`` (recorded only while
 a torch profiler runs): ``render`` around the whole call,
 ``render.project``, ``render.build`` (counts ``exp_cap`` and
 ``n_isect``), ``render.composite`` and ``render.assemble``.
+
+``rasterization_2dgs`` renders 2D gaussian surfels (``ops.surfels``:
+2DGS's ray-splat intersection, gsplat's ``rasterization_2dgs``) forward
+only, through the same spans, build and stream layout.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import torch.distributed as dist
 
 from splat_one_tpu_torch.ops import intersect as isect_mod
 from splat_one_tpu_torch.ops import stream_isect as si_mod
-from splat_one_tpu_torch.ops import stream_raster, tile_raster
+from splat_one_tpu_torch.ops import stream_raster, surfels, tile_raster
 from splat_one_tpu_torch.ops.intersect import IsectCaps
 from splat_one_tpu_torch.ops.projection import Projected, project_gaussians
 from splat_one_tpu_torch.ops.stream_isect import StreamCaps
@@ -85,6 +89,22 @@ def composite_slab(proj: Projected, i: int, n: int, width: int, height: int,
             cfg, proj.means2d, proj.conics, proj.colors, proj.opacities, proj.depths,
             proj_sg.radii, isect, abs_dummy=absgrad_dummy, tile_offset=st_lo)
     return out, isect
+
+
+def _assemble(images, backgrounds, render_mode: str):
+    """(rgb, alpha, accumulated depth) images -> ``(render, alpha)``: the
+    background blended in and the channels ``render_mode`` asks for."""
+    rgb, alpha, depth = images
+    if backgrounds is not None:
+        rgb = rgb + (1.0 - alpha) * backgrounds[:, None, None, :]
+    if "ED" in render_mode:
+        # expected depth (gsplat ED): accumulated depth / alpha
+        depth = depth / torch.clamp(alpha, min=1e-10)
+    if render_mode == "RGB":
+        return rgb, alpha
+    if render_mode in ("RGB+ED", "RGB+D"):
+        return torch.cat([rgb, depth], dim=-1), alpha
+    return depth, alpha
 
 
 def _count_isect(caps, isect):
@@ -218,18 +238,7 @@ def rasterization(
             to_image = tile_raster.tiles_to_image
 
         with span("render.assemble"):
-            rgb, alpha, depth = to_image(cfg, out)
-            if backgrounds is not None:
-                rgb = rgb + (1.0 - alpha) * backgrounds[:, None, None, :]
-            if "ED" in render_mode:
-                # expected depth (gsplat ED): accumulated depth / alpha
-                depth = depth / torch.clamp(alpha, min=1e-10)
-            if render_mode == "RGB":
-                render = rgb
-            elif render_mode in ("RGB+ED", "RGB+D"):
-                render = torch.cat([rgb, depth], dim=-1)
-            else:
-                render = depth
+            render, alpha = _assemble(to_image(cfg, out), backgrounds, render_mode)
 
         n_isect, overflow = isect.n_isect, isect.overflow
         if st_shard is not None:
@@ -243,6 +252,77 @@ def rasterization(
             "valid": proj.valid,
             "n_isect": n_isect,
             "overflow": overflow,
+            "width": width,
+            "height": height,
+            "n_cameras": C,
+        }
+        return render, alpha, info
+
+
+def rasterization_2dgs(
+    means: torch.Tensor,  # [N, 3]
+    quats: torch.Tensor,  # [N, 4]
+    scales: torch.Tensor,  # [N, 2 or 3]: the first two are the surfel's
+    opacities: torch.Tensor,  # [N]
+    colors: torch.Tensor,  # [N, K, 3] SH coefficients
+    viewmats: torch.Tensor,  # [C, 4, 4]
+    Ks: torch.Tensor,  # [C, 3, 3]
+    width: int,
+    height: int,
+    *,
+    sh_degree: int = 3,
+    near_plane: float = 0.01,
+    far_plane: float = 1e10,
+    camera_model: str = "pinhole",
+    render_mode: str = "RGB",
+):
+    """Render 2D gaussian surfels into C pinhole cameras, forward only:
+    ``ops.surfels``' projection (counts ``n_visible``, the surfels with a
+    screen footprint, in ``render.project``), the stream build over the
+    surfels' boxes (16 px tiles, ``StreamCaps.choose``), the surfel pack
+    and forward, and ``rasterization``'s image assembly. ``render_mode``
+    as ``rasterization``'s; its depth is gsplat's ``RGB+ED`` for 2DGS: each
+    surfel's centre depth, accumulated (not the per-pixel intersection
+    depth of the 2DGS paper's rasterizer).
+
+    Returns ``(render_colors, render_alphas, info)`` as ``rasterization``
+    does; ``info`` holds ``means2d``, ``boxes``, ``depths``, ``valid``,
+    ``n_isect``, ``overflow``, ``width``, ``height`` and ``n_cameras``.
+    CUDA inputs that autograd records through raise ``ValueError``: the
+    kernels have no backward. On the CPU the plain versions run."""
+    if render_mode not in ("RGB", "RGB+ED", "RGB+D", "ED", "D"):
+        raise ValueError(f"bad render_mode {render_mode!r}")
+    if camera_model != "pinhole":
+        raise ValueError(f"2DGS is served through pinhole cameras, got {camera_model!r}")
+
+    with span("render"):
+        N = means.shape[0]
+        C = viewmats.shape[0]
+        with span("render.project"):
+            proj = surfels.project_surfels(means, quats, scales, opacities, viewmats, Ks, width,
+                                           height, colors, sh_degree, near_plane, far_plane)
+            valid = proj.valid
+            count("n_visible", lambda: valid.sum())
+        _, _, sgw, sgh = si_mod.supertile_grid(width, height, 16)
+        caps = StreamCaps.choose(N, C, C * sgw * sgh)
+        cfg = StreamCfg.from_caps(caps, width, height, 16, C, N)
+        with span("render.build"):
+            isect = si_mod.build_stream_intersections(proj, width, height, 16, caps)
+            _count_isect(caps, isect)
+        with span("render.composite"):
+            with span("build.pack"):
+                packed = surfels.pack_surfel_fields(proj, isect, caps)
+            out = surfels.surfel_fwd(cfg, isect.st_starts, packed)
+        with span("render.assemble"):
+            render, alpha = _assemble(stream_raster.stream_to_image(cfg, out), None,
+                                      render_mode)
+        info = {
+            "means2d": proj.means2d,
+            "boxes": proj.boxes,
+            "depths": proj.depths,
+            "valid": proj.valid,
+            "n_isect": isect.n_isect,
+            "overflow": isect.overflow,
             "width": width,
             "height": height,
             "n_cameras": C,

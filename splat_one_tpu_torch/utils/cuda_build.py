@@ -70,6 +70,15 @@ SIGNATURES = {
     # image id, w0, b0, w1 (or NULL), b1 (or NULL), w_last, b_last, out, n,
     # e, f, nb, stream
     "appearance_fwd": [_P] * 4 + [_I] + [_P] * 9 + [_I] * 4 + [_P],
+    # means, quats, scales, opacities, sh, viewmats, Ks, means2d,
+    # transforms, depths, boxes, colors, valid, n, c, k, nb, width, height,
+    # near_plane, far_plane, stream
+    "surfel_project": [_P] * 13 + [_I] * 6 + [_F] * 2 + [_P],
+    # sorted_g, means2d, transforms, opacities, colors, depths, packed,
+    # exp_cap, m0, rows, stream
+    "surfel_pack": [_P] * 7 + [_I] * 3 + [_P],
+    # st_starts, packed, out, cs, sw, sh, term_thresh, stream
+    "surfel_fwd": [_P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 launch_counts: collections.Counter = collections.Counter()

@@ -20,8 +20,8 @@ id, start and end in ``time.time_ns()``, counts) to a bounded in-memory
 list; the parent stack is per thread, a root span's id is its request
 id, and records past ``SPAN_CAP`` are dropped and counted (``dropped``).
 A new profiler session empties the list. A count's value may be a 0-d
-tensor (on the device): it is read when ``spans()`` collects the records,
-never on the request path. Spans launch nothing and synchronise nothing,
+tensor (on the device), or a callable returning one: it is read (called)
+when ``spans()`` collects the records, never on the request path. Spans launch nothing and synchronise nothing,
 and they are not ``record_function`` ranges, which would put an
 annotation on the profiler's device row.
 
@@ -172,8 +172,9 @@ def span(name: str):
 
 
 def count(name: str, value) -> None:
-    """Attach ``value`` (an int, or a 0-d tensor read at collection) to
-    the innermost open span of this thread, while a profiler runs."""
+    """Attach ``value`` (an int, a 0-d tensor, or a callable returning
+    one, read or called at collection) to the innermost open span of this
+    thread, while a profiler runs."""
     if not _autograd_profiler._is_profiler_enabled:
         return
     stack = _REC.local.stack
@@ -186,8 +187,8 @@ def spans() -> List[SpanRecord]:
     order the spans ended, their counts read as ints."""
     with _REC.lock:
         records = list(_REC.records)
-    return [r._replace(counts=tuple((k, int(v)) for k, v in r.counts)) if r.counts else r
-            for r in records]
+    return [r._replace(counts=tuple((k, int(v() if callable(v) else v)) for k, v in r.counts))
+            if r.counts else r for r in records]
 
 
 def anchors() -> List[int]:

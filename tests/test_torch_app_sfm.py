@@ -362,7 +362,7 @@ def test_cli_has_every_jax_subcommand(monkeypatch):
     for name, jp in jsubs.items():
         jact = {a.dest: a for a in jp._actions if a.dest != "help"}
         tact = {a.dest: a for a in tsubs[name]._actions if a.dest != "help"}
-        assert set(tact) - set(jact) <= {"device"}, name
+        assert set(tact) - set(jact) <= {"device", "primitive"}, name
         argv = [name]
         for dest, a in jact.items():
             assert _spec(tact[dest]) == _spec(a), (name, dest)
@@ -377,6 +377,9 @@ def test_cli_has_every_jax_subcommand(monkeypatch):
         got = vars(cli.build_parser().parse_args(argv))
         assert got.pop("cmd") == name
         got.pop("device", None)
+        assert got.pop("primitive", "3dgs") == "3dgs"
         assert got == want, name
         if "device" in tact:
             assert tact["device"].default == "cuda"
+        if "primitive" in tact:  # the viewer's 2DGS flag: 3DGS unless asked
+            assert tact["primitive"].default == "3dgs"

@@ -198,6 +198,8 @@ def test_cli_parses_as_jax(monkeypatch, capsys, tmp_path):
         if argv[0] in ("train", "viewer", "create-masks", "estimate-depth",
                        "mask-ui") + cli.SFM_COMMANDS:
             assert ns.pop("device") == "cuda"
+        if argv[0] == "viewer":
+            assert ns.pop("primitive") == "3dgs"
         assert ns == _jax_namespace(argv, monkeypatch), argv
 
     # train and viewer reach the stage with the JAX CLI's arguments
@@ -218,10 +220,11 @@ def test_cli_parses_as_jax(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr("splat_one_tpu.app.viewer.serve_workdir",
                         lambda wd, port, ckpt: calls.update(vj=(wd, port, ckpt)))
     monkeypatch.setattr(viewer, "serve_workdir",
-                        lambda wd, port, ckpt, device: calls.update(vt=(wd, port, ckpt, device)))
+                        lambda wd, port, ckpt, device, primitive:
+                        calls.update(vt=(wd, port, ckpt, device, primitive)))
     jcli.main(ARGVS[16])
     assert cli.main(ARGVS[16]) == 0
-    assert calls["vt"] == calls["vj"] + ("cuda",)
+    assert calls["vt"] == calls["vj"] + ("cuda", "3dgs")
 
     # resize and restore-images, once refused, run (host only, no --device)
     wd = tmp_path / "depth_wd"
